@@ -6,27 +6,42 @@
 Phases, each of which raises on failure:
 
 1. The card's name and power limit (nvidia-smi); build the CUDA solve
-   kernel from metrotrpl_tpu_torch/solver/csrc with nvcc.
-2. Kernel against its plain PyTorch version at the flagship shape: 48 rows
-   (8 states around the staub truth x 6 measurements), nx=128. float32 on
-   the fast plan (hmax 48, chord blocks of 4): the rows over the Newton
-   thresholds (0.5 and the 0.97*cap pin) must be the same rows, and on the
-   others |d log10 observable| <= 1e-4. float64 on the escalation-rung plan
-   (hmax 16, chord-free): relative error <= 1e-9. CUDA-event times of both.
+   kernel (four instantiations: std and traps model, float and double)
+   from metrotrpl_tpu_torch/solver/csrc with nvcc.
+2. The std kernel against its plain PyTorch version at the flagship
+   shape: 48 rows (8 states around the staub truth x 6 measurements),
+   nx=128. float32 on the fast plan (hmax 48, chord blocks of 4): the rows
+   over the Newton thresholds (0.5 and the 0.97*cap pin) must be the same
+   rows, and on the others |d log10 observable| <= 1e-4. float64 on the
+   escalation-rung plan (hmax 16, chord-free): relative error <= 1e-9.
+   CUDA-event times of both.
 3. The 8 high-mobility ridge states (scripts/.probe_r14_ridge_states.npz)
    through the port's eval_logll on the flagship plan in a float32 walk:
    the float64 rung must launch and every logll_T must be finite.
-4. The main path: `cli write-example --fast` into chip_smoke_out/,
+4. The std main path: `cli write-example --fast` into chip_smoke_out/,
    then `cli mcmc --device cuda` for 200 iterations, checkpointing every
    100. The pickle must load, the cold chain's acceptance lie in
-   [0.05, 0.8], the float32 kernel must have launched at least once per
-   iteration and the float64 rung at least once. Launch counts are zeroed
-   just before this phase and read just after it.
+   [0.05, 0.8], the float32 std kernel must have launched at least once
+   per iteration and the float64 rung at least once.
+5. The traps kernel (C=4) against its plain version as in phase 2, on the
+   traps config (the flagship geometry under the shallow-trap model, data
+   synthesized by the float64 LSODA oracle at the traps truth): float32
+   on the fast plan, float64 on the rung plan, same tolerances.
+6. The traps ladder: 8 states with mu_n just above the escalation trigger
+   (40 cm^2/Vs) through eval_logll in a float32 walk: the float64 traps
+   kernel must launch and every logll_T must be finite.
+7. The traps main path: `cli mcmc --device cuda` on the traps config for
+   100 iterations, checkpointing every 50, with the checks of phase 4 on
+   the traps kernels.
 
-The last three lines of standard output are the kernels JSON object (one
-entry per float/double instantiation), the nvidia-smi line and
-{"ok": true, "device": {...}}. Without CUDA, or outside the repository,
-it exits non-zero and prints no result.
+Launch counts are zeroed just before each main path (phases 4 and 7) and
+read just after it. The last three lines of standard output are the
+kernels JSON object (one entry per instantiation, with its launches on
+its main path, its error against the plain version, CUDA-event times of
+kernel and plain version, and its bound: the larger of the FLOPs it does
+over the card's non-tensor-core peak and its bytes over the memory rate),
+the nvidia-smi line and {"ok": true, "device": {...}}. Without CUDA, or
+outside the repository, it exits non-zero and prints no result.
 """
 
 import json
@@ -39,12 +54,29 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parent
-N_ITERS = 200
-#: staub MAPI true parameters, entry units (the data write-example
-#: synthesizes; metrotrpl_tpu/workloads.py STAUB_TRUE)
-STAUB_TRUE = {"n0": 1e8, "p0": 3e15, "mu_n": 20, "mu_p": 20, "ks": 4.8e-11,
-              "Cn": 4.4e-29, "Cp": 4.4e-29, "Sf": 10, "Sb": 10,
-              "tauN": 511, "tauP": 871, "eps": 10, "Tm": 300}
+N_ITERS = 200          # std walk
+N_ITERS_TRAPS = 100    # traps walk
+
+#: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit):
+#: non-tensor-core FLOP/s per scalar type, and the HBM rate in bytes/s
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
+
+# FLOPs (+, -, *, /, negation) of one cell, counted from the kernel's
+# arithmetic (solver/csrc/sdirk_solve.cuh and .cu), per model: the RHS
+# pass (two make_cell 16, edge currents 21, rhs_cell 18 / traps 27), the
+# factorization preamble (two make_cell 16, edge Jacobian 36, jac_cell 76
+# / traps 84, I - hg*J 6*C^2), one PCR factor level (block inverse 42 /
+# Schur 108, six block products C^2(2C-1) each, 4*C^2 updates), the final
+# inverse, one PCR apply level (two mat-vecs and 2C adds), the final
+# mat-vec, the Newton update bookkeeping (6C + 2), the per-step stage
+# bookkeeping (18 C) and the streamed observables (13 per knot).
+CELL_FLOPS = {
+    3: dict(rhs=55, fac=182, lvl=348, inv=42, app=36, mv=15, upd=20,
+            step=54, emit=13),
+    4: dict(rhs=64, fac=232, lvl=844, inv=108, app=64, mv=28, upd=26,
+            step=72, emit=13),
+}
 
 
 def nvidia_smi_line():
@@ -70,6 +102,99 @@ def cuda_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def solve_bound(nc, dtype, B, nx, fp_x):
+    """(bound_ms, bound_by, flops, bytes) of one kernel call on plan fp_x:
+    the larger of its FLOPs (CELL_FLOPS, this plan's steps, Newton
+    iterations and factorizations) over the peak for its type, and of its
+    bytes (inputs read once, outputs written once) over the memory rate."""
+    f = CELL_FLOPS[nc]
+    levels = max(nx - 1, 0).bit_length()
+    n_stages = 3                          # sdirk3: three implicit stages
+    it = f["rhs"] + f["upd"] + levels * f["app"] + f["mv"]
+    fac = f["fac"] + levels * f["lvl"] + f["inv"]
+    n = fp_x.n_steps
+    if fp_x.n_ramp is None:
+        phases = [(n, 1, fp_x.newton_iters)]
+    else:
+        ni_p = fp_x.newton_plateau or fp_x.newton_iters
+        phases = [(fp_x.n_ramp, fp_x.ramp_block, fp_x.newton_iters),
+                  (n - fp_x.n_ramp, fp_x.refactor_every, ni_p)]
+    per_cell = f["emit"]
+    for steps, block, ni in phases:
+        per_cell += steps * (n_stages * ni * it + f["step"] + f["emit"])
+        per_cell += steps // block * fac
+    flops = per_cell * nx * B
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (B * n + B * nc * nx + B * 17 + B + 3 * B * (n + 1))
+    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem
+            else "bytes", flops, nbytes)
+
+
+def write_traps_config(cfg, init_cond, measurement, output, num_iters,
+                       checkpoint_freq):
+    """The traps config: the flagship geometry (write-example --fast:
+    staub MAPI, 6 TRPL curves, nx=128, 501 points over 2000 ns, sdirk hmax
+    48 with chord blocks of 4, 8 chains at T = 1..128, hard bounds) under
+    the shallow-trap model, with the 13 staub parameters plus kC, Nt and
+    tauE (model units, priors truth x 1e-3 .. 1e3), n0, eps and Tm frozen,
+    trial move 0.003, the walk started from guesses +-0.3 dex off the
+    truth. The measurement file is synthesized by the float64 LSODA
+    oracle at the truth when it is missing. Written with the port's
+    generate_config_script_file."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch.cli import synthesize_measurements
+    from metrotrpl_tpu_torch.config import generate_config_script_file
+    from metrotrpl_tpu_torch.workloads import (
+        STAUB_NAMES,
+        STAUB_PRIOR,
+        STAUB_TRUE,
+        STAUB_UC,
+        TRAPS_TRUE,
+    )
+
+    names = list(STAUB_NAMES) + list(TRAPS_TRUE)
+    truth = {**STAUB_TRUE, **TRAPS_TRUE}
+    sim = {"lengths": [311, 2000, 311, 2000, 311, 2000], "nx": [128] * 6,
+           "meas_types": ["TRPL"] * 6, "num_meas": 6}
+    active = {n: (0 if n in ("n0", "eps", "Tm") else 1) for n in names}
+    guess = dict(truth)
+    rng = np.random.default_rng(42)
+    for n in names:
+        if active[n]:
+            guess[n] *= 10.0 ** rng.uniform(-0.3, 0.3)
+    param_info = {
+        "names": names,
+        "unit_conversions": {**STAUB_UC, "Tm": 1},
+        "do_log": {n: 1 for n in names},
+        "active": active,
+        "init_guess": guess,
+        "prior_dist": {**STAUB_PRIOR, **{n: (v * 1e-3, v * 1e3)
+                                         for n, v in TRAPS_TRUE.items()}},
+        "trial_move": {n: 0.003 for n in names},
+    }
+    mcmc = {
+        "init_cond_path": str(init_cond), "measurement_path": str(measurement),
+        "output_path": str(output), "ini_mode": "fluence",
+        "num_iters": num_iters, "solver": ("sdirk",), "hmax": 48.0,
+        "refactor_every": 4, "model": "traps", "model_uncertainty": 1,
+        "log_y": 1, "scale_factor": None, "irf_convolution": None,
+        "parallel_tempering": [1., 2., 4., 8., 16., 32., 64., 128.],
+        "temper_freq": 10, "hard_bounds": 1, "force_min_y": 0,
+        "checkpoint_freq": checkpoint_freq, "load_checkpoint": None,
+    }
+    generate_config_script_file(str(cfg), sim, param_info,
+                                {"time_cutoff": [0, 2000],
+                                 "select_obs_sets": None}, mcmc)
+    if not Path(measurement).exists():
+        uc = param_info["unit_conversions"]
+        synthesize_measurements(str(measurement), str(init_cond),
+                                sim["lengths"], sim["nx"],
+                                {k: v * uc.get(k, 1) for k, v in
+                                 truth.items()}, model="traps")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -79,6 +204,7 @@ def main():
     from metrotrpl_tpu_torch.cli import _load_common
     from metrotrpl_tpu_torch.cli import main as cli
     from metrotrpl_tpu_torch.inference.likelihood import (
+        ESCALATE_MU_MODEL,
         expand_states,
         make_eval_logll,
         newton_div_tol_default,
@@ -90,8 +216,10 @@ def main():
     from metrotrpl_tpu_torch.solver import solve_kernel as sk
     from metrotrpl_tpu_torch.solver.forward import prepare_batch
     from metrotrpl_tpu_torch.solver.sdirk import NEWTON_DAMP
+    from metrotrpl_tpu_torch.workloads import STAUB_TRUE, TRAPS_TRUE
 
     dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
     card = nvidia_smi_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -104,19 +232,21 @@ def main():
           f"{lib.build_seconds:.2f} s, ready in "
           f"{time.perf_counter() - t0:.2f} s")
     for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line \
+                or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     # the flagship config: write-example --fast (data synthesized by the
-    # float64 LSODA oracle at the staub truth), checkpoint every 100
+    # float64 LSODA oracle at the staub truth), checkpoint every 100; the
+    # traps config beside it
     work = REPO / "chip_smoke_out"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    fluences = REPO / "Inputs" / "staub_MAPI_threepower_twothick_fluences.csv"
     cfg = work / "flagship.txt"
     t0 = time.perf_counter()
     cli(["write-example", str(cfg), "--fast", "--num-iters", str(N_ITERS),
-         "--init-cond",
-         str(REPO / "Inputs" / "staub_MAPI_threepower_twothick_fluences.csv"),
+         "--init-cond", str(fluences),
          "--measurement", str(work / "staub_nonoise.csv"),
          "--output", str(work / "run")])
     text = cfg.read_text()
@@ -125,148 +255,211 @@ def main():
     cfg.write_text(text.replace("Checkpoint freq: 1000",
                                 "Checkpoint freq: 100"))
     print(f"write-example: {time.perf_counter() - t0:.1f} s")
+    cfg_traps = work / "traps.txt"
+    t0 = time.perf_counter()
+    write_traps_config(cfg_traps, fluences, work / "staub_traps_nonoise.csv",
+                       work / "run_traps", N_ITERS_TRAPS, 50)
+    print(f"traps config and oracle data: {time.perf_counter() - t0:.1f} s")
 
-    sim_info, param_info, _f, mcmc, iniPar, e_data = _load_common(str(cfg))
-    plan, _ = plans_from_config(sim_info, param_info, dict(mcmc), e_data,
-                                iniPar)
-    g_idx, fp, fp_hi = plan.fwd[0]
-    if fp.nx != 128 or len(g_idx) != 6 or fp_hi.solve_dtype != "float64":
-        raise RuntimeError("the flagship plan is not nx=128 x 6 with an "
-                           "f64 rung")
-    names = list(plan.param_names)
+    def load_plan(path, model):
+        sim_info, param_info, _f, mcmc, iniPar, e_data = _load_common(
+            str(path))
+        plan, _ = plans_from_config(sim_info, param_info, dict(mcmc),
+                                    e_data, iniPar)
+        g_idx, fp, fp_hi = plan.fwd[0]
+        if (fp.nx != 128 or len(g_idx) != 6 or fp.model != model
+                or fp_hi.solve_dtype != "float64"):
+            raise RuntimeError(f"the {model} plan is not nx=128 x 6 with "
+                               "an f64 rung")
+        return plan, param_info, mcmc
+
+    plan, param_info, mcmc = load_plan(cfg, "std")
+    plan_t, param_info_t, _ = load_plan(cfg_traps, "traps")
     # the ladder's thresholds at nx=128: Newton divergence, and the
     # cap-pinned rows that repair ungated
-    resid_tol = newton_div_tol_default(fp.nx)
+    resid_tol = newton_div_tol_default(128)
     pin = 0.97 * NEWTON_DAMP
+    temps = torch.as_tensor(np.asarray(mcmc["parallel_tempering"]),
+                            dtype=f32, device=dev)
 
-    def batch(states, fp_x, dtype):
+    def batch(pl, states, fp_x, dtype):
         """Kernel inputs of K states x 6 measurements on plan fp_x."""
         t = lambda a, d=dtype: torch.as_tensor(  # noqa: E731
             np.asarray(a), dtype=d, device=dev)
         K = states.shape[0]
-        gi = torch.as_tensor(g_idx, device=dev)
-        init, raw = expand_states(plan, gi, t(fp_x.x_centers), t(states),
-                                  t(plan.init_profiles), t(plan.units))
+        gi = torch.as_tensor(pl.fwd[0][0], device=dev)
+        init, raw = expand_states(pl, gi, t(fp_x.x_centers), t(states),
+                                  t(pl.init_profiles), t(pl.units))
         p, y0, dts, _ = prepare_batch(init, raw, t(fp_x.dx).repeat(K),
-                                      t(fp_x.dt).repeat(K, 1))
-        kw = dict(scheme_name=fp_x.scheme, newton_iters=fp_x.newton_iters,
+                                      t(fp_x.dt).repeat(K, 1), fp_x.model)
+        kw = dict(model=fp_x.model, scheme_name=fp_x.scheme,
+                  newton_iters=fp_x.newton_iters,
                   refactor_every=fp_x.refactor_every, n_ramp=fp_x.n_ramp,
                   ramp_block=fp_x.ramp_block,
                   newton_plateau=fp_x.newton_plateau)
         return (p, y0, dts, t(fp_x.dx).repeat(K)), kw
 
-    # ---- phase 2: kernel vs plain version at the flagship shape ----
-    rng = np.random.default_rng(0)
-    truth = np.array([STAUB_TRUE[n] for n in names], dtype=float)
-    active = np.array([bool(param_info["active"][n]) for n in names])
-    states = truth[None] * 10.0 ** (rng.uniform(-0.1, 0.1, (8, len(names)))
-                                    * active[None])
     results = {}
-    for label, fp_x, dtype in (("f32", fp, torch.float32),
-                               ("f64", fp_hi, torch.float64)):
-        args, kw = batch(states, fp_x, dtype)
-        run_k = lambda: sk.integrate_observables_cuda(*args, **kw)  # noqa
-        run_p = lambda: sk.integrate_observables_plain(*args, **kw)  # noqa
-        out_k = run_k()
-        out_p = run_p()
+
+    def kernel_vs_plain(phase, pl, pinfo, truth):
+        """Both instantiations of pl's model against the plain version on
+        8 states (+-0.1 dex on the active parameters) x 6 measurements."""
+        names = list(pl.param_names)
+        rng = np.random.default_rng(0)
+        base = np.array([truth[n] for n in names], dtype=float)
+        active = np.array([bool(pinfo["active"][n]) for n in names])
+        states = base[None] * 10.0 ** (
+            rng.uniform(-0.1, 0.1, (8, len(names))) * active[None])
+        _, fp, fp_hi = pl.fwd[0]
+        for dlabel, fp_x, dtype in (("f32", fp, f32), ("f64", fp_hi, f64)):
+            label = f"{fp_x.model}_{dlabel}"
+            args, kw = batch(pl, states, fp_x, dtype)
+            run_k = lambda: sk.integrate_observables_cuda(*args, **kw)  # noqa
+            run_p = lambda: sk.integrate_observables_plain(*args, **kw)  # noqa
+            out_k = run_k()
+            out_p = run_p()
+            torch.cuda.synchronize()
+            pl_k, tr_k, rs_k = (a.double().cpu().numpy() for a in out_k)
+            pl_p, tr_p, rs_p = (a.double().cpu().numpy() for a in out_p)
+            r_k, r_p = rs_k.max(axis=0), rs_p.max(axis=0)
+            for thr in (resid_tol, pin):
+                fk, fp_ = ~(r_k < thr), ~(r_p < thr)
+                if not np.array_equal(fk, fp_):
+                    raise RuntimeError(
+                        f"{label}: rows over resid {thr} differ: kernel "
+                        f"{np.nonzero(fk)[0]} vs plain {np.nonzero(fp_)[0]}")
+            ok = r_k < resid_tol
+            if ok.sum() < 24:
+                raise RuntimeError(f"{label}: only {ok.sum()} of 48 rows "
+                                   "unflagged; the comparison would be "
+                                   "vacuous")
+            pairs = ((pl_k[:, ok], pl_p[:, ok]), (tr_k[:, ok], tr_p[:, ok]))
+            dlog = max(np.abs(np.log10(a) - np.log10(b)).max()
+                       for a, b in pairs)
+            rel = max((np.abs(a - b) / np.abs(b)).max() for a, b in pairs)
+            # float32: decades of the observables (the chord solve at
+            # nx=128 amplifies rounding); float64: relative error
+            err, limit = (dlog, 1e-4) if dlabel == "f32" else (rel, 1e-9)
+            if not (np.isfinite(pl_k[:, ok]).all() and err <= limit):
+                raise RuntimeError(f"{label}: kernel vs plain error {err} > "
+                                   f"{limit}")
+            ms = cuda_ms(run_k, 20)
+            plain_ms = cuda_ms(run_p, 1)
+            nc = args[1].shape[1]
+            bound_ms, bound_by, flops, nbytes = solve_bound(
+                nc, dtype, 48, 128, fp_x)
+            results[label] = dict(
+                max_abs_err=float(dlog), max_rel_err=float(rel), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, flops=flops, bytes=nbytes,
+                tolerance=(f"{'|d log10 obs|' if dlabel == 'f32' else 'rel'}"
+                           f" <= {limit:g} on rows under resid {resid_tol}; "
+                           "the same rows over it"),
+                shape=f"B=48 nx=128 n_steps={fp_x.n_steps}")
+            print(f"phase {phase} {label}: B=48 nx=128 n_steps="
+                  f"{fp_x.n_steps} flagged rows {int((~ok).sum())}; max "
+                  f"|dlog10| {dlog:.3e}, max rel err {rel:.3e} (limit "
+                  f"{limit:g}); kernel {ms:.3f} ms, plain PyTorch "
+                  f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {flops:.4g} FLOP, {nbytes} B) on {card}")
+
+    def walk(phase, path, run_dir, n_iters, model):
+        """`cli mcmc --device cuda` on path; checks the pickle, the
+        cold chain and the launches of the model's kernels."""
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli(["mcmc", str(path), "--device", "cuda"])
         torch.cuda.synchronize()
-        pl_k, tr_k, rs_k = (a.double().cpu().numpy() for a in out_k)
-        pl_p, tr_p, rs_p = (a.double().cpu().numpy() for a in out_p)
-        r_k, r_p = rs_k.max(axis=0), rs_p.max(axis=0)
-        for thr in (resid_tol, pin):
-            fk, fp_ = ~(r_k < thr), ~(r_p < thr)
-            if not np.array_equal(fk, fp_):
-                raise RuntimeError(
-                    f"{label}: rows over resid {thr} differ: kernel "
-                    f"{np.nonzero(fk)[0]} vs plain {np.nonzero(fp_)[0]}")
-        ok = r_k < resid_tol
-        if ok.sum() < 24:
-            raise RuntimeError(f"{label}: only {ok.sum()} of 48 rows "
-                               "unflagged; the comparison would be vacuous")
-        pairs = ((pl_k[:, ok], pl_p[:, ok]), (tr_k[:, ok], tr_p[:, ok]))
-        dlog = max(np.abs(np.log10(a) - np.log10(b)).max() for a, b in pairs)
-        rel = max((np.abs(a - b) / np.abs(b)).max() for a, b in pairs)
-        # float32: decades of the observables (the chord solve at nx=128
-        # amplifies rounding); float64: relative error
-        err, limit = (dlog, 1e-4) if label == "f32" else (rel, 1e-9)
-        if not (np.isfinite(pl_k[:, ok]).all() and err <= limit):
-            raise RuntimeError(f"{label}: kernel vs plain error {err} > "
-                               f"{limit}")
-        ms = cuda_ms(run_k, 20)
-        plain_ms = cuda_ms(run_p, 1)
-        results[label] = dict(
-            max_abs_err=float(dlog), max_rel_err=float(rel), ms=ms,
-            plain_ms=plain_ms,
-            tolerance=(f"{'|d log10 obs|' if label == 'f32' else 'rel'} <= "
-                       f"{limit:g} on rows under resid {resid_tol}; the "
-                       "same rows over it"),
-            shape=f"B=48 nx=128 n_steps={fp_x.n_steps}")
-        print(f"phase 2 {label}: B=48 nx=128 n_steps={fp_x.n_steps} "
-              f"flagged rows {int((~ok).sum())}; max |dlog10| {dlog:.3e}, "
-              f"max rel err {rel:.3e} (limit {limit:g}); kernel {ms:.3f} ms, "
-              f"plain PyTorch {plain_ms:.1f} ms on {card}")
+        walk_s = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+        ens = load_checkpoint(str(run_dir / "CPU0-final.pik"))
+        H = ens.H
+        K = H.accept.shape[0]
+        acc_cold = float(H.accept[0, 1:].mean())
+        n32, n64 = launches[(model, f32)], launches[(model, f64)]
+        print(f"phase {phase}: {model} walk, {n_iters} iterations x {K} "
+              f"chains in {walk_s:.2f} s (plan build and first evaluation "
+              f"included): {n_iters * K / walk_s:.1f} walker-steps/s on "
+              f"{card}; cold-chain acceptance {acc_cold:.3f}; swaps "
+              f"accepted {H.swap_accept.tolist()} of "
+              f"{H.swap_attempts.tolist()}; launches {model} f32 {n32} "
+              f"f64 {n64}, of the other model "
+              f"{sum(launches.values()) - n32 - n64}")
+        if ens.latest_iter != n_iters or H.accept.shape != (K, n_iters):
+            raise RuntimeError(f"phase {phase}: the checkpoint does not "
+                               "hold the walk")
+        if ens.ensemble_fields["model"] != model:
+            raise RuntimeError(f"phase {phase}: the checkpoint is not a "
+                               f"{model} walk")
+        if not np.isfinite(H.loglikelihood[0]).all():
+            raise RuntimeError(f"phase {phase}: non-finite cold-chain "
+                               "log-likelihood")
+        if not 0.05 <= acc_cold <= 0.8:
+            raise RuntimeError(f"phase {phase}: cold-chain acceptance "
+                               f"{acc_cold}")
+        if n32 < n_iters:
+            raise RuntimeError(f"phase {phase}: the float32 {model} kernel "
+                               f"launched {n32} < {n_iters} times")
+        return launches
+
+    def ladder(phase, pl, states, model):
+        """eval_logll of states in a float32 walk on plan pl: the float64
+        instantiation of the model must launch, every logll_T be finite."""
+        ev = make_eval_logll(pl, dtype=f32, device=dev)
+        sk.reset_launch_counts()
+        out = ev(torch.as_tensor(states, dtype=f32, device=dev), temps)
+        torch.cuda.synchronize()
+        ll = out["logll_T"].cpu().numpy()
+        n64 = sk.LAUNCHES[(model, f64)]
+        print(f"phase {phase}: {model} ladder: repaired rows per state "
+              f"{out['repair_states'].tolist()}, fail_states "
+              f"{out['fail_states'].tolist()}, f64 launches {n64}, "
+              f"logll_T(T=1) {np.round(ll[:, 0], 3).tolist()}")
+        if n64 < 1 or not np.isfinite(ll).all():
+            raise RuntimeError(f"phase {phase}: the float64 {model} rung "
+                               "did not launch or a logll_T is not finite")
+
+    # ---- phase 2: std kernel vs plain version at the flagship shape ----
+    kernel_vs_plain(2, plan, param_info, STAUB_TRUE)
 
     # ---- phase 3: the float64 rung on the flagship ridge states ----
     ridge = np.load(REPO / "scripts" / ".probe_r14_ridge_states.npz")
     rstates = np.stack([ridge[n] if n in ridge.files
                         else np.full(8, STAUB_TRUE[n], dtype=float)
-                        for n in names], axis=1)
-    temps = torch.as_tensor(np.asarray(mcmc["parallel_tempering"]),
-                            dtype=torch.float32, device=dev)
-    ev = make_eval_logll(plan, dtype=torch.float32, device=dev)
-    sk.reset_launch_counts()
-    out = ev(torch.as_tensor(rstates, dtype=torch.float32, device=dev), temps)
-    torch.cuda.synchronize()
-    ll = out["logll_T"].cpu().numpy()
-    n64 = sk.LAUNCHES[torch.float64]
-    print(f"phase 3: ridge states: repaired rows per state "
-          f"{out['repair_states'].tolist()}, fail_states "
-          f"{out['fail_states'].tolist()}, f64 launches {n64}, "
-          f"logll_T(T=1) {np.round(ll[:, 0], 3).tolist()}")
-    if n64 < 1 or not np.isfinite(ll).all():
-        raise RuntimeError("phase 3: the float64 rung did not launch or a "
-                           "ridge logll_T is not finite")
+                        for n in plan.param_names], axis=1)
+    ladder(3, plan, rstates, "std")
 
-    # ---- phase 4: the main path, `cli mcmc --device cuda` ----
-    sk.reset_launch_counts()
-    t0 = time.perf_counter()
-    cli(["mcmc", str(cfg), "--device", "cuda"])
-    torch.cuda.synchronize()
-    walk_s = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
-    ens = load_checkpoint(str(work / "run" / "CPU0-final.pik"))
-    H = ens.H
-    K = H.accept.shape[0]
-    acc_cold = float(H.accept[0, 1:].mean())
-    print(f"phase 4: {N_ITERS} iterations x {K} chains in {walk_s:.2f} s "
-          f"(plan build and first evaluation included): "
-          f"{N_ITERS * K / walk_s:.1f} walker-steps/s on {card}; cold-chain "
-          f"acceptance {acc_cold:.3f}; swaps accepted "
-          f"{H.swap_accept.tolist()} of {H.swap_attempts.tolist()}; "
-          f"launches f32 {launches[torch.float32]} "
-          f"f64 {launches[torch.float64]}")
-    if ens.latest_iter != N_ITERS or H.accept.shape != (K, N_ITERS):
-        raise RuntimeError("phase 4: the checkpoint does not hold the walk")
-    if not np.isfinite(H.loglikelihood[0]).all():
-        raise RuntimeError("phase 4: non-finite cold-chain log-likelihood")
-    if not 0.05 <= acc_cold <= 0.8:
-        raise RuntimeError(f"phase 4: cold-chain acceptance {acc_cold}")
-    if launches[torch.float32] < N_ITERS:
-        raise RuntimeError("phase 4: the float32 kernel launched "
-                           f"{launches[torch.float32]} < {N_ITERS} times")
-
-    if launches[torch.float64] < 1:
+    # ---- phase 4: the std main path, `cli mcmc --device cuda` ----
+    launches_std = walk(4, cfg, work / "run", N_ITERS, "std")
+    if launches_std[("std", f64)] < 1:
         raise RuntimeError("phase 4: the float64 rung never launched")
 
-    # one entry per instantiation of the kernel (the walk's float32 solve
-    # and the float64 escalation rung); max_abs_err is in decades of the
-    # observables
+    # ---- phase 5: traps kernel vs plain version ----
+    truth_t = {**STAUB_TRUE, **TRAPS_TRUE}
+    kernel_vs_plain(5, plan_t, param_info_t, truth_t)
+
+    # ---- phase 6: the traps ladder just above the mobility trigger ----
+    names_t = list(plan_t.param_names)
+    tstates = np.tile(np.array([truth_t[n] for n in names_t]), (8, 1))
+    mu_entry = ESCALATE_MU_MODEL / plan_t.units[names_t.index("mu_n")]
+    tstates[:, names_t.index("mu_n")] = mu_entry * np.linspace(1.02, 1.2, 8)
+    ladder(6, plan_t, tstates, "traps")
+
+    # ---- phase 7: the traps main path ----
+    launches_traps = walk(7, cfg_traps, work / "run_traps", N_ITERS_TRAPS,
+                          "traps")
+
+    # one entry per instantiation; launches are each model's main-path
+    # counts; max_abs_err is in decades of the observables
+    launch_of = {"std": launches_std, "traps": launches_traps}
     kernels = [{
-        "name": f"sdirk_solve_{label}", "route": "cuda",
+        "name": f"sdirk_solve_{model}_{dl}", "route": "cuda",
         "source": "metrotrpl_tpu_torch/solver/csrc/sdirk_solve.cu",
         "replaces": "metrotrpl_tpu/solver/pallas_step.py:47",
-        "launches": launches[dtype], **results[label],
-    } for label, dtype in (("f32", torch.float32), ("f64", torch.float64))]
+        "launches": launch_of[model][(model, dtype)],
+        **results[f"{model}_{dl}"],
+    } for model in ("std", "traps") for dl, dtype in (("f32", f32),
+                                                       ("f64", f64))]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

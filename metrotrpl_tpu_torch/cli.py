@@ -3,19 +3,26 @@
     python -m metrotrpl_tpu_torch.cli mcmc <config.txt> [--device cuda]
     python -m metrotrpl_tpu_torch.cli write-example <out.txt> [--fast]
 
-``mcmc`` reads the reference config-script format with
-``metrotrpl_tpu.config`` and writes ``CPU{jobid}-final.pik`` into the
-config's output path; ``write-example`` is
-``metrotrpl_tpu.cli.cmd_write_example`` (jax-free).
+``mcmc`` reads the reference config-script format with the port's
+``config`` package and writes ``CPU{jobid}-final.pik`` into the config's
+output path; ``write-example`` writes the staub-MAPI example config, as
+``metrotrpl_tpu.cli write-example`` does, and synthesizes its data with
+the port's float64 LSODA oracle.
 """
 
 import argparse
 import os
 import sys
 
+import numpy as np
+
 
 def _load_common(script_path):
-    from metrotrpl_tpu.config import get_data, get_initpoints, read_config
+    from metrotrpl_tpu_torch.config import (
+        get_data,
+        get_initpoints,
+        read_config,
+    )
 
     sim_info, param_info, meas_flags, MCMC_fields = read_config(script_path)
     iniPar = get_initpoints(MCMC_fields["init_cond_path"], meas_flags)
@@ -24,8 +31,38 @@ def _load_common(script_path):
     return sim_info, param_info, meas_flags, MCMC_fields, iniPar, e_data
 
 
+def _resolve_jobid(args):
+    """Reference main.py:18-24: when no explicit --jobid is given, fall
+    back to the SLURM array task id (0 outside SLURM)."""
+    if args.jobid is not None:
+        return args.jobid
+    try:
+        return int(os.environ["SLURM_ARRAY_TASK_ID"])
+    except (KeyError, ValueError):
+        return 0
+
+
+def _resolve_config(path, jobid):
+    """Reference main.py:27 semantics: the config argument may be a script
+    HEADER, resolved as ``{header}{jobid}.txt`` (the MCMC_script_writer
+    per-array-task convention). An existing literal path always wins."""
+    if not os.path.exists(path):
+        cand = f"{path}{jobid}.txt"
+        if os.path.exists(cand):
+            return cand
+    return path
+
+
+def _resolve_out(args):
+    """Reference MCMC_script_writer.py:41: an ``out`` argument without a
+    .txt suffix is a script header; the file written is
+    ``{header}{jobid}.txt`` (one config per SLURM array task)."""
+    if args.out.endswith(".txt"):
+        return args.out
+    return f"{args.out}{_resolve_jobid(args)}.txt"
+
+
 def cmd_mcmc(args):
-    from metrotrpl_tpu.cli import _resolve_config, _resolve_jobid
     from metrotrpl_tpu_torch.inference.metropolis import metro
 
     if args.ensembles != 1 or args.mesh:
@@ -44,10 +81,113 @@ def cmd_mcmc(args):
           f"{os.path.join(MCMC_fields['output_path'], export_path)}")
 
 
-def cmd_write_example(args):
-    from metrotrpl_tpu.cli import cmd_write_example as write_example
+def synthesize_measurements(mpath, ipath, lengths, nx, params, model="std",
+                            t_end=2000.0, nt=501):
+    """Write TRPL curves solved by the float64 LSODA oracle at the
+    model-unit ``params`` for the fluences in ``ipath`` (t, PL, 2 % of PL
+    per row, a new curve at every t = 0), as ``write-example`` does."""
+    from metrotrpl_tpu_torch.oracle import solve_reference
+    from metrotrpl_tpu_torch.oracle.scipy_reference import beer_lambert
 
-    return write_example(args)
+    flu = np.loadtxt(ipath, delimiter=",")
+    t = np.linspace(0, t_end, nt)
+    rows = []
+    for m, th in enumerate(lengths):
+        dx = th / nx[m]
+        x = np.linspace(dx / 2, th - dx / 2, nx[m])
+        ic = beer_lambert(flu[m, 0] * 1e-14, flu[m, 1] * 1e-7, x)
+        pl = solve_reference(ic, th, nx[m], t, params, model=model)
+        rows.append(np.stack([t, pl, 0.02 * pl], axis=1))
+    os.makedirs(os.path.dirname(mpath) or ".", exist_ok=True)
+    np.savetxt(mpath, np.concatenate(rows), delimiter=",")
+
+
+def cmd_write_example(args):
+    """Generate the staub-MAPI example config (reference
+    MCMC_script_writer.py:46-156 settings); the settings of
+    ``metrotrpl_tpu.cli.cmd_write_example``."""
+    from metrotrpl_tpu_torch.config import generate_config_script_file
+
+    args.out = _resolve_out(args)
+    names = ["n0", "p0", "mu_n", "mu_p", "ks", "Cn", "Cp", "Sf", "Sb",
+             "tauN", "tauP", "eps", "Tm"]
+    simPar = {"lengths": [311, 2000, 311, 2000, 311, 2000],
+              "nx": [128] * 6, "meas_types": ["TRPL"] * 6, "num_meas": 6}
+    param_info = {
+        "names": names,
+        "unit_conversions": {"n0": 1e-21, "p0": 1e-21, "mu_n": 1e5,
+                             "mu_p": 1e5, "ks": 1e12, "Cn": 1e33,
+                             "Cp": 1e33, "Sf": 1e-2, "Sb": 1e-2, "Tm": 1},
+        "do_log": {n: 1 for n in names},
+        "active": {n: (0 if n in ("n0", "eps", "Tm") else 1) for n in names},
+        "init_guess": {"n0": 1e8, "p0": 3e15, "mu_n": 20, "mu_p": 20,
+                       "ks": 4.8e-11, "Cn": 4.4e-29, "Cp": 4.4e-29,
+                       "Sf": 10, "Sb": 10, "tauN": 511, "tauP": 871,
+                       "eps": 10, "Tm": 300},
+        "prior_dist": {"n0": (0, np.inf), "p0": (1e14, 1e16),
+                       "mu_n": (1e0, 1e2), "mu_p": (1e0, 1e2),
+                       "ks": (1e-11, 1e-9), "Cn": (1e-29, 1e-27),
+                       "Cp": (1e-29, 1e-27), "Sf": (1e-1, 1e4),
+                       "Sb": (1e-1, 1e4), "tauN": (1, 2e3),
+                       "tauP": (1, 1e4), "eps": (0, np.inf),
+                       "Tm": (0, np.inf)},
+        "trial_move": {n: 0.003 for n in names},
+    }
+    # data is synthesized at the TRUE parameters below; the walk starts
+    # from randomized guesses (reference MCMC_script_writer.py:120-122)
+    true_guess = dict(param_info["init_guess"])
+    rng = np.random.default_rng(42)
+    for n in names:
+        if param_info["active"][n]:
+            param_info["init_guess"][n] *= 10.0 ** rng.uniform(-0.3, 0.3)
+
+    meas_fields = {"time_cutoff": [0, 2000], "select_obs_sets": None}
+    MCMC_fields = {
+        "init_cond_path": args.init_cond or os.path.join(
+            "Inputs", "staub_MAPI_threepower_twothick_fluences.csv"),
+        "measurement_path": args.measurement or os.path.join(
+            "Inputs", "staub_MAPI_threepower_twothick_nonoise.csv"),
+        "output_path": args.output or os.path.join("bay_outputs", "run0"),
+        "ini_mode": "fluence",
+        "num_iters": args.num_iters,
+        # --fast: the fast integration mode at the hmax validated for this
+        # workload; the default keeps the reference writer's solver choice
+        **({"solver": ("sdirk",), "hmax": 48.0, "refactor_every": 4}
+           if getattr(args, "fast", False) else {"solver": ("solveivp",)}),
+        "model": "std",
+        "model_uncertainty": 1,
+        "log_y": 1,
+        "scale_factor": None,
+        "irf_convolution": None,
+        "parallel_tempering": [1., 2., 4., 8., 16., 32., 64., 128.],
+        "temper_freq": 10,
+        "hard_bounds": 1,
+        "force_min_y": 0,
+        "checkpoint_freq": 1000,
+        "load_checkpoint": None,
+    }
+    generate_config_script_file(args.out, simPar, param_info, meas_fields,
+                                MCMC_fields, verbose=True)
+    print(f"Wrote {args.out}")
+
+    # Turnkey: synthesize the measurement data with the float64 LSODA
+    # oracle at the (pre-randomization) true parameters if it's missing
+    # (the reference's staub 'nonoise' dataset is synthetic and unshipped).
+    mpath = MCMC_fields["measurement_path"]
+    ipath = MCMC_fields["init_cond_path"]
+    if not os.path.exists(ipath):
+        os.makedirs(os.path.dirname(ipath) or ".", exist_ok=True)
+        flu = np.array([[2.12e11, 6e4, 1], [2.12e11, 6e4, 1],
+                        [6.36e11, 6e4, 1], [6.36e11, 6e4, 1],
+                        [1.91e12, 6e4, 1], [1.91e12, 6e4, 1]])
+        np.savetxt(ipath, flu, delimiter=",")
+        print(f"Wrote synthetic fluences: {ipath}")
+    if not os.path.exists(mpath):
+        uc = param_info["unit_conversions"]
+        pm = {k: v * uc.get(k, 1) for k, v in true_guess.items()}
+        synthesize_measurements(mpath, ipath, simPar["lengths"],
+                                simPar["nx"], pm)
+        print(f"Wrote synthetic measurement data: {mpath}")
 
 
 def main(argv=None):

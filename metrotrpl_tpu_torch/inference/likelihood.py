@@ -19,7 +19,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from metrotrpl_tpu.constants import NEGATIVE_FRAC_TOL
+from metrotrpl_tpu_torch import resolve_device
+from metrotrpl_tpu_torch.constants import NEGATIVE_FRAC_TOL
 from metrotrpl_tpu_torch.ops.convolve import convolve_moments
 from metrotrpl_tpu_torch.ops.interp import interp1d
 from metrotrpl_tpu_torch.physics.models import beer_lambert
@@ -477,16 +478,16 @@ def _make_compare_pipeline(plan, dtype, device):
 _SOLVE_DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
-def make_eval_logll(plan, dtype=torch.float64, device="cpu"):
+def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
     """Build eval_logll(states (K, P), temps (Kt,)) -> dict with
     'logll_T' (K, Kt), 'per_meas' (K, M, Kt), 'n_solver_fail' (),
     'fail_states' (K,), 'resid' (K, M), 'esc_score' (K, M) — the
     post-repair values of the JAX twin's "inline" escalation mode — and
     'repair_states' (K,), the rows per state the ladder solved again.
     States are in entry units; every tensor lives on ``device``."""
+    device = resolve_device(device)
     if plan.kind != "pde":
         raise NotImplementedError(f"likelihood kind {plan.kind!r}")
-    device = torch.device(device)
     M = plan.n_meas
 
     def t(a, dt=dtype):

@@ -4,7 +4,8 @@ Counterpart of ``metrotrpl_tpu/inference/metropolis.py``: :func:`metro`
 builds the plans from the parsed config and data, :func:`run_mh` drives
 checkpoint windows of :func:`build_mh_kernel`'s window function, copies
 each window's states / log-likelihoods / accepts to the host History
-once, and writes checkpoints that ``metrotrpl_tpu.io.ensemble`` loads.
+once, and writes checkpoints that the reference GUI and both packages'
+``io.ensemble.load_checkpoint`` load.
 
 The escalation ladder runs inline in every evaluation. The JAX package
 defers it (it re-runs a failing window through an inline-escalation
@@ -21,10 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from metrotrpl_tpu.constants import MSG_FREQ
-# the JAX package's checkpoint classes are plain numpy: the port writes
-# and reads the same pickles with them
-from metrotrpl_tpu.io.ensemble import Ensemble, load_checkpoint
+from metrotrpl_tpu_torch.constants import MSG_FREQ
+from metrotrpl_tpu_torch.io.ensemble import Ensemble, load_checkpoint
 from metrotrpl_tpu_torch import default_walk_dtype, resolve_device
 from metrotrpl_tpu_torch.inference.likelihood import (
     build_likelihood_plan,
@@ -42,7 +41,7 @@ class MHKernel(NamedTuple):
 
 
 def build_mh_kernel(like_plan, move_plan, temps, base_trial_move, temper_freq,
-                    do_tempering, dtype=torch.float64, device="cpu"):
+                    do_tempering, dtype=torch.float64, device="cuda"):
     """The MH window function on ``device``.
 
     temps : (K,) tempering temperatures (one chain per temperature).
@@ -100,12 +99,12 @@ def all_signal_handler(func):
 
 
 def run_mh(ensemble, like_plan, move_plan, logger, seed=235817049752375780,
-           export_path="", dtype=torch.float64, device="cpu",
+           export_path="", dtype=torch.float64, device="cuda",
            starting_iter=0, need_initial_state=True, draw_source=None):
     """Host loop: checkpoint windows of iterations (reference metro()
     loop structure, metropolis.py:373-463).
 
-    ensemble : metrotrpl_tpu.io.ensemble.Ensemble (mutated in place).
+    ensemble : metrotrpl_tpu_torch.io.ensemble.Ensemble (mutated in place).
     draw_source : replaces the production :class:`TorchDraws` (tests).
     """
     device = resolve_device(device)
@@ -245,8 +244,8 @@ def metro(sim_info, iniPar, e_data, MCMC_fields, param_info, verbose=False,
     refactor_every, ramp_block, newton_plateau, newton_div_tol,
     escalate, logger_name, trap_signals, draw_source.
     """
-    from metrotrpl_tpu.config.data_io import make_dir
-    from metrotrpl_tpu.io.logging import start_logging, stop_logging
+    from metrotrpl_tpu_torch.config.data_io import make_dir
+    from metrotrpl_tpu_torch.io.logging import start_logging, stop_logging
     from metrotrpl_tpu_torch.ops.convolve import load_irf_tables
 
     device = resolve_device(device)

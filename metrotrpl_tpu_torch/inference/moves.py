@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from metrotrpl_tpu.constants import MAX_PROPOSALS
+from metrotrpl_tpu_torch.constants import MAX_PROPOSALS
 
 
 class MovePlan(NamedTuple):

@@ -60,9 +60,16 @@ def _p_add(A, B):
 
 
 def p_inv_small(A):
-    """Closed-form (unpivoted) inverse of 3x3 plane blocks (the std
-    model's) — meant for the diagonally dominant blocks of I - h*gamma*J."""
+    """Closed-form (unpivoted) inverse of 2x2, 3x3 (std model) and 4x4
+    (traps model, by the Schur complement on the 2x2 partition) plane
+    blocks, in the JAX twin's operand order — meant for the diagonally
+    dominant blocks of I - h*gamma*J."""
     C = len(A)
+    if C == 2:
+        a, b = A[0]
+        c, d = A[1]
+        idet = 1.0 / (a * d - b * c)
+        return ((d * idet, -b * idet), (-c * idet, a * idet))
     if C == 3:
         c00 = A[1][1] * A[2][2] - A[1][2] * A[2][1]
         c01 = A[1][2] * A[2][0] - A[1][0] * A[2][2]
@@ -77,6 +84,25 @@ def p_inv_small(A):
         return ((c00 * idet, c10 * idet, c20 * idet),
                 (c01 * idet, c11 * idet, c21 * idet),
                 (c02 * idet, c12 * idet, c22 * idet))
+    if C == 4:
+        def sub(r0, c0):
+            return tuple(tuple(A[r0 + i][c0 + j] for j in range(2))
+                         for i in range(2))
+        P, Q, R, S = sub(0, 0), sub(0, 2), sub(2, 0), sub(2, 2)
+        Pinv = p_inv_small(P)
+        RPinv = p_mm(R, Pinv)
+        schur = tuple(tuple(S[i][j] - x for j, x in enumerate(row))
+                      for i, row in enumerate(p_mm(RPinv, Q)))
+        Sinv = p_inv_small(schur)
+        PinvQ = p_mm(Pinv, Q)
+        corr = p_mm(p_mm(PinvQ, Sinv), RPinv)
+        top_left = tuple(tuple(Pinv[i][j] + corr[i][j] for j in range(2))
+                         for i in range(2))
+        top_right = p_neg(p_mm(PinvQ, Sinv))
+        bot_left = p_neg(p_mm(Sinv, RPinv))
+        return tuple(
+            [top_left[i] + top_right[i] for i in range(2)]
+            + [bot_left[i] + Sinv[i] for i in range(2)])
     raise NotImplementedError(f"p_inv_small: unsupported block size {C}")
 
 

@@ -1,21 +1,22 @@
-"""Scaled excess-density drift-diffusion-recombination model (std).
+"""Scaled excess-density drift-diffusion-recombination models.
 
 PyTorch counterpart of ``metrotrpl_tpu/physics/models.py``; the module
 docstring there derives the state scaling and the antisymmetric split
 used here unchanged:
 
-    state planes (dN, dD, E_shifted), each (..., nx):
-    dN = (N - n0) / ns,  dD = (P - p0 - (N - n0)) / ns,
+    state planes, each (..., nx): (dN, dD, E_shifted) for the std model
+    (C=3), (dN, Ntrap, dD, E_shifted) for the shallow-trap model (C=4);
+    dN = (N - n0) / ns,  Ntrap = N_trap / ns,
+    dD = (P - p0 - (N - n0)) / ns,
     E_shifted[i] = E_{i+1} / (lam * dx * ns),  lam = q_C / (eps * eps0)
 
 Every state component stays O(1), so float32 holds up, and the charge
 separation dD is carried directly instead of as a difference of two
 nearly equal densities.
 
-Only the std model (C=3) is ported. Each function mirrors its JAX
-namesake line for line, so the two agree to rounding; the CUDA kernel's
-per-cell arithmetic (``solver/csrc/sdirk_solve.cuh``) is the same algebra
-written per cell.
+Each function mirrors its JAX namesake line for line, so the two agree to
+rounding; the CUDA kernel's per-cell arithmetic
+(``solver/csrc/sdirk_solve.cuh``) is the same algebra written per cell.
 """
 
 from typing import NamedTuple
@@ -23,9 +24,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from metrotrpl_tpu.constants import eps0, kB, q_C
+from metrotrpl_tpu_torch.constants import eps0, kB, q_C
 
-N_COMP = {"std": 3}
+N_COMP = {"std": 3, "traps": 4}
 
 
 class ScaledParams(NamedTuple):
@@ -252,8 +253,65 @@ def jac_std_planes(y, p):
     return L, D, U
 
 
-RHS_PLANES = {"std": rhs_std_planes}
-JAC_PLANES = {"std": jac_std_planes}
+def rhs_traps_planes(y, p):
+    """dy/dt for the shallow-trap model; y is the plane tuple (dN, Ntrap,
+    dD, E_shifted). Trap capture moves electrons only, so it enters dD'
+    with the opposite sign to dN'."""
+    dN, Ntr, dD, E = y
+    jn, Fs, M, Ntot, Ptot = _fluxes(dN, dD, E, p)
+    R = _bulk_recombination(M, Ntot, Ptot, p)
+    trap = p.kc_s * Ntot * (p.nt_s - Ntr)
+    detrap = Ntr * p.inv_tauE
+
+    ddN = (jn[..., 1:] - jn[..., :-1]) * p.inv_dx - R + detrap - trap
+    dNtr = trap - detrap
+    ddD = -(Fs[..., 1:] - Fs[..., :-1]) * p.inv_dx + trap - detrap
+    n = dN.shape[-1]
+    interior = torch.arange(n, device=dN.device) < n - 1
+    dE = torch.where(interior, -Fs[..., 1:] * p.inv_dx, 0.0)
+    return (ddN, dNtr, ddD, dE)
+
+
+def jac_traps_planes(y, p):
+    """Symbolic block-tridiagonal Jacobian of :func:`rhs_traps_planes`:
+    the std 3x3 blocks spliced into slots (dN, Ntrap, dD, E) = (0, 1, 2,
+    3), plus the cell-local trap derivatives on the diagonal block
+    (d trap/d dN = kc_s*(nt_s - Ntr), d (trap - detrap)/d Ntr =
+    -(kc_s*Ntot + inv_tauE)). 4x4 nested tuples of (..., nx) planes."""
+    dN, Ntr, dD, E = y
+    L3, D3, U3 = jac_std_planes((dN, dD, E), p)
+    zero = torch.zeros_like(D3[0][0])
+
+    def bz(a):
+        return a.expand(zero.shape)
+
+    Ntot = p.n0t + dN
+    tcap = bz(p.kc_s * (p.nt_s - Ntr))       # d(trap)/ddN
+    trel = bz(p.kc_s * Ntot + p.inv_tauE)    # -d(trap - detrap)/dNtr
+
+    # std (dN, dD, E) rows/cols -> traps slots (0, 2, 3); Ntr slot = 1
+    def splice(B3, extra_col1=(None, None, None)):
+        rows = []
+        for a3 in range(3):
+            c1 = extra_col1[a3] if extra_col1[a3] is not None else zero
+            rows.append((B3[a3][0], c1, B3[a3][1], B3[a3][2]))
+        return rows
+
+    L = (splice(L3)[0], (zero,) * 4, *splice(L3)[1:])
+    U = (splice(U3)[0], (zero,) * 4, *splice(U3)[1:])
+
+    Drows = splice(D3, extra_col1=(trel, -trel, None))
+    D00, _, D02, D03 = Drows[0]
+    D20, _, D22, D23 = Drows[1]
+    D = ((D00 - tcap, trel, D02, D03),
+         (tcap, -trel, zero, zero),
+         (D20 + tcap, -trel, D22, D23),
+         Drows[2])
+    return L, D, U
+
+
+RHS_PLANES = {"std": rhs_std_planes, "traps": rhs_traps_planes}
+JAC_PLANES = {"std": jac_std_planes, "traps": jac_traps_planes}
 
 
 def beer_lambert(fluence, alpha, x_centers, direction=1.0):
@@ -268,20 +326,22 @@ def beer_lambert(fluence, alpha, x_centers, direction=1.0):
 
 def initial_state(init_dN, ns, model="std", dtype=None):
     """Scaled initial state (..., C, nx) from an excess-density profile:
-    dN = dP initially, so dD and E start at exactly 0."""
+    dN = dP initially, so dD and E (and the trapped density) start at
+    exactly 0."""
     if model not in N_COMP:
-        raise NotImplementedError(f"model {model!r} is not ported yet")
+        raise ValueError(f"Invalid model {model}")
     y0 = init_dN / ns
     if dtype is not None:
         y0 = y0.to(dtype)
     zeros = torch.zeros_like(y0)
-    return torch.stack([y0, zeros, zeros], dim=-2)
+    return torch.stack([y0] + [zeros] * (N_COMP[model] - 1), dim=-2)
 
 
 def observables_planes(y, p, dx, model="std"):
     """Scaled (pl_t, trts_t) of a plane-tuple state: dx times the cell sum
     of the excess product, and of diff_n*dN + diff_p*dP."""
-    dN, dD = y[0], y[1]
+    dN = y[0]
+    dD = y[2] if model == "traps" else y[1]
     dP = dN + dD
     M = _excess_product(dN, dP, p)
     pl_t = dx * torch.sum(M, dim=-1)

@@ -33,9 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-#: argtypes of metrotrpl_sdirk_solve_{f32,f64}: (dt, y0, par, dx, pl, tr,
-#: rs, B, nx, n_steps, n_stages, A, gamma, newton_iters, n_phase1,
-#: ramp_block, refactor, ni_plateau, stream)
+#: the library's entry points, one per model and scalar type
+SOLVE_ENTRY_POINTS = tuple(f"metrotrpl_sdirk_solve_{m}_{d}"
+                           for m in ("std", "traps") for d in ("f32", "f64"))
+#: argtypes of every entry point: (dt, y0, par, dx, pl, tr, rs, B, nx,
+#: n_steps, n_stages, A, gamma, newton_iters, n_phase1, ramp_block,
+#: refactor, ni_plateau, stream)
 SOLVE_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _D, _I,
                   _I, _I, _I, _I, _P]
 
@@ -70,7 +73,7 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when loaded from cache
         self.ptxas_log = ptxas_log
         self.lib = ctypes.CDLL(str(path))
-        for name in ("metrotrpl_sdirk_solve_f32", "metrotrpl_sdirk_solve_f64"):
+        for name in SOLVE_ENTRY_POINTS:
             fn = getattr(self.lib, name)
             fn.argtypes = SOLVE_ARGTYPES
             fn.restype = ctypes.c_int

@@ -1,8 +1,10 @@
-// Fixed-step SDIRK integration of the scaled std drift-diffusion PDE for a
-// batch of simulations, one CUDA thread block per simulation.
+// Fixed-step SDIRK integration of the scaled drift-diffusion PDE (the std
+// model or the shallow-trap model) for a batch of simulations, one CUDA
+// thread block per simulation.
 //
 // Replaces metrotrpl_tpu/solver/pallas_step.py:_solve_kernel (the package's
-// only Pallas kernel). Plain PyTorch version of the same function:
+// only Pallas kernel), both of its model instantiations (std, C=3, and
+// traps, C=4). Plain PyTorch version of the same function:
 // metrotrpl_tpu_torch/solver/sdirk.py:integrate_observables; wrapper and
 // launch counts: metrotrpl_tpu_torch/solver/solve_kernel.py.
 //
@@ -15,8 +17,8 @@
 // |last Newton update| residual.
 //
 // Templated on the scalar type (float for the walk, double for the
-// escalation rung) and on the model's component count NC; only the std
-// model (NC = 3) is instantiated.
+// escalation rung) and on the model's component count NC (3: std, 4:
+// traps); four C entry points instantiate the four combinations.
 //
 // Design: one thread per cell (blockDim = nx rounded up to a warp, ragged
 // threads masked), the cell's state and its per-level PCR alpha/beta
@@ -24,16 +26,25 @@
 // shared memory: the state for each RHS/Jacobian pass, the (Dinv, L, U)
 // blocks at shift +-s in each PCR factor level, the right-hand side at
 // +-s in each PCR apply level. One buffer of 3*NC*NC*nx scalars serves
-// all three (27*nx at NC=3: about 27 KB at nx=128 in double). Block
-// reductions (the damping max, the residual max, the observable sums) go
-// through warp shuffles; the max lets NaN win, as jnp.max / torch.amax do.
+// all three (27*nx at NC=3: about 27 KB at nx=128 in double; 48*nx at
+// NC=4: 48 KB, above the 48 KB static limit, so the launch opts in to
+// more dynamic shared memory). The edge currents and edge Jacobian planes
+// sit past the NC state planes, at NC*nx. Block reductions (the damping
+// max, the residual max, the observable sums) go through warp shuffles;
+// the max lets NaN win, as jnp.max / torch.amax do.
+// Per thread, the PCR factors are 2*levels*NC*NC + NC*NC values (336 at
+// NC=4 with 10 levels: 2.7 KB in double) in local memory.
 //
 // What bounds it on an H100: latency and occupancy, not bandwidth or
-// FLOPs. At the flagship shape it launches 48 blocks (8 chains x 6
-// measurements) of 128 threads on 132 SMs, and each Newton iteration is a
-// chain of dependent shared-memory exchanges and __syncthreads. Making it
-// fast (several simulations per block, fewer barriers, factors in shared
-// memory for float) is later work.
+// FLOPs. By its count of operations (chip_smoke.py solve_bound: 2.1 GFLOP
+// for std float on the fast plan, 9.9 GFLOP for traps double on the rung
+// plan, at B=48, nx=128) it could finish in 0.03-0.3 ms at the card's
+// non-tensor-core peak; it takes 45 to 65 times that (PERF.md). At the
+// flagship shape it launches 48 blocks (8 chains x 6 measurements) of 128
+// threads on 132 SMs, and each Newton iteration is a chain of dependent
+// shared-memory exchanges and __syncthreads. Making it fast (several
+// simulations per block, fewer barriers, factors in shared memory for
+// float) is later work.
 //
 // Numerics: no fast math. The failure predicates downstream compare
 // against 4*FLT_MIN and the tail clamp against FLT_MIN, so denormals must
@@ -127,8 +138,7 @@ __device__ void block_sum2(S a, S b, S* red, S* sa, S* sb) {
 // Per-thread context of one simulation of an NC-component model.
 template <typename S, int NC>
 struct Sim {
-  // the per-cell physics (sdirk_solve.cuh) is the std model's
-  static_assert(NC == C, "only the std model (3 components) is ported");
+  using Mo = Model<NC>;
   static constexpr int NBK = NC * NC;  // entries of one block
   // exchange-buffer planes: the Dinv, L and U blocks of a PCR level
   static constexpr int XCH_PLANES = 3 * NBK;
@@ -150,35 +160,41 @@ struct Sim {
       for (int c = 0; c < NC; ++c) xch[c * n + i] = y[c];
     __syncthreads();
     if (active) {
-      *me = make_cell(xch[i], xch[n + i], xch[2 * n + i], p);
+      *me = make_cell(xch[Mo::N * n + i], xch[Mo::D * n + i],
+                      xch[Mo::E * n + i], p);
       const int j = i < n - 1 ? i + 1 : i;
-      *hi = make_cell(xch[j], xch[n + j], xch[2 * n + j], p);
+      *hi = make_cell(xch[Mo::N * n + j], xch[Mo::D * n + j],
+                      xch[Mo::E * n + j], p);
     }
   }
 
-  // dy/dt of this cell (rhs_std_planes). Each edge's currents are
-  // computed once, by the cell to its left, and read by the cell to its
-  // right through shared memory.
+  // dy/dt of this cell (rhs_std_planes / rhs_traps_planes). Each edge's
+  // currents are computed once, by the cell to its left, and read by the
+  // cell to its right through shared memory, past the NC state planes.
   __device__ void rhs(const S* y, S* out) {
     Cell<S> me, hi;
     cells(y, &me, &hi);
     S jn_r = S(0), F_r = S(0);
+    S* edge = xch + NC * n;
     if (active) {
       right_edge_flux(i, n, me, hi, p, &jn_r, &F_r);
-      xch[3 * n + i] = jn_r;
-      xch[4 * n + i] = F_r;
+      edge[i] = jn_r;
+      edge[n + i] = F_r;
     }
     __syncthreads();
     if (active) {
       S jn_l, F_l;
       if (i > 0) {
-        jn_l = xch[3 * n + i - 1];
-        F_l = xch[4 * n + i - 1];
+        jn_l = edge[i - 1];
+        F_l = edge[n + i - 1];
       } else {  // front surface; the surface terms cancel in F
         jn_l = surface_flux(me, p.sf);
         F_l = S(0);
       }
-      rhs_cell(i, n, me, jn_l, F_l, jn_r, F_r, p, out);
+      if constexpr (NC == 3)
+        rhs_cell(i, n, me, jn_l, F_l, jn_r, F_r, p, out);
+      else
+        rhs_cell_traps(i, n, me, y[Mo::T], jn_l, F_l, jn_r, F_r, p, out);
     }
     __syncthreads();
   }
@@ -190,7 +206,7 @@ struct Sim {
     EdgeJac<S> ek;
     if (active) {
       ek = own_edge_jac(i, n, me, hi, p);
-      S* e = xch + 3 * n + i;
+      S* e = xch + NC * n + i;
       e[0] = ek.jn_dNk;
       e[n] = ek.jn_dNk1;
       e[2 * n] = ek.jn_dE;
@@ -205,12 +221,15 @@ struct Sim {
     if (active) {
       EdgeJac<S> ep = {S(0), S(0), S(0), S(0), S(0), S(0), S(0), S(0)};
       if (i > 0) {
-        const S* e = xch + 3 * n + i - 1;
+        const S* e = xch + NC * n + i - 1;
         ep = {e[0], e[n], e[2 * n], e[3 * n], e[4 * n], e[5 * n], e[6 * n],
               e[7 * n]};
       }
       S JL[NBK], JD[NBK], JU[NBK];
-      jac_cell(i, n, me, ek, ep, p, JL, JD, JU);
+      if constexpr (NC == 3)
+        jac_cell(i, n, me, ek, ep, p, JL, JD, JU);
+      else
+        jac_cell_traps(i, n, me, y[Mo::T], ek, ep, p, JL, JD, JU);
       for (int e = 0; e < NBK; ++e) {
         const bool diag = e % (NC + 1) == 0;
         D[e] = diag ? S(1) - hg * JD[e] : -hg * JD[e];
@@ -223,7 +242,7 @@ struct Sim {
     for (int lev = 0; lev < n_levels; ++lev, s *= 2) {
       S Di[NBK];
       if (active) {
-        inv3(D, Di);
+        inv<NC>(D, Di);
         for (int e = 0; e < NBK; ++e) {
           xch[e * n + i] = Di[e];
           xch[(NBK + e) * n + i] = L[e];
@@ -246,18 +265,18 @@ struct Sim {
       __syncthreads();
       if (active) {
         S t[NBK], u[NBK];
-        mm3(L, Dm, t);
+        mm<NC>(L, Dm, t);
         for (int e = 0; e < NBK; ++e) alpha[lev][e] = -t[e];
-        mm3(U, Dp, t);
+        mm<NC>(U, Dp, t);
         for (int e = 0; e < NBK; ++e) beta[lev][e] = -t[e];
-        mm3(alpha[lev], Lm, L);
-        mm3(alpha[lev], Um, t);
-        mm3(beta[lev], Lp, u);
+        mm<NC>(alpha[lev], Lm, L);
+        mm<NC>(alpha[lev], Um, t);
+        mm<NC>(beta[lev], Lp, u);
         for (int e = 0; e < NBK; ++e) D[e] = D[e] + (t[e] + u[e]);
-        mm3(beta[lev], Up, U);
+        mm<NC>(beta[lev], Up, U);
       }
     }
-    if (active) inv3(D, dinv);
+    if (active) inv<NC>(D, dinv);
   }
 
   // x = M^-1 b with the stored factors (pcr_apply).
@@ -280,12 +299,12 @@ struct Sim {
       __syncthreads();
       if (active) {
         S lo[NC], hi[NC];
-        mv3(alpha[lev], bm, lo);
-        mv3(beta[lev], bp, hi);
+        mv<NC>(alpha[lev], bm, lo);
+        mv<NC>(beta[lev], bp, hi);
         for (int c = 0; c < NC; ++c) b[c] = b[c] + lo[c] + hi[c];
       }
     }
-    if (active) mv3(dinv, b, x);
+    if (active) mv<NC>(dinv, b, x);
   }
 
   // One step's stage sweep with the current factors (sdirk_stages).
@@ -314,9 +333,12 @@ struct Sim {
         for (int c = 0; c < NC; ++c)
           G[c] = active ? Y[c] - h * sc.gamma * f[c] - acc[c] : S(0);
         apply(G, d);
+        // max |d| over every plane (_maxabs_update), NaN winning
         S m = S(0);
-        if (active)
-          m = nan_max(nan_max(abs_(d[0]), abs_(d[1])), abs_(d[2]));
+        if (active) {
+          m = abs_(d[0]);
+          for (int c = 1; c < NC; ++c) m = nan_max(m, abs_(d[c]));
+        }
         const S dmax = block_max(m, red);
         // trust-region damping: scale the update so max|d| <= cap
         const S cap = S(NEWTON_DAMP);
@@ -330,7 +352,8 @@ struct Sim {
       }
       resid = have_resid ? nan_max(resid, r) : r;
       have_resid = true;
-      for (int c = 0; c < NC; ++c) fs[st][c] = (Y[c] - acc[c]) / (h * sc.gamma);
+      for (int c = 0; c < NC; ++c)
+        fs[st][c] = (Y[c] - acc[c]) / (h * sc.gamma);
     }
     for (int c = 0; c < NC; ++c) y[c] = Y[c];
     return resid;
@@ -369,7 +392,8 @@ sdirk_solve_kernel(const S* __restrict__ dt, const S* __restrict__ y0,
   auto emit = [&](int k, S resid) {
     S m = S(0), t = S(0);
     if (sim.active) {
-      const Cell<S> c = make_cell(y[0], y[1], y[2], sim.p);
+      using Mo = Model<NC>;
+      const Cell<S> c = make_cell(y[Mo::N], y[Mo::D], y[Mo::E], sim.p);
       m = c.M;
       t = sim.p.diff_n * c.dN + sim.p.diff_p * c.dP;
     }
@@ -450,28 +474,26 @@ int launch(const void* dt, const void* y0, const void* par, const void* dx,
 
 }  // namespace sdirk
 
-// Plain C interface, loaded with ctypes. Arrays are contiguous device
-// buffers: dt (B, n_steps), y0 (B, 3, nx), par (B, 17), dx (B,), outputs
-// (B, n_steps + 1). A is the host n_stages x n_stages Butcher table.
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int metrotrpl_sdirk_solve_f32(
-    const void* dt, const void* y0, const void* par, const void* dx,
-    void* pl, void* tr, void* rs, int B, int nx, int n_steps, int n_stages,
-    const void* A, double gamma, int newton_iters, int n_phase1,
-    int ramp_block, int refactor, int ni_plateau, void* stream) {
-  return sdirk::launch<float, sdirk::C>(
-      dt, y0, par, dx, pl, tr, rs, B, nx, n_steps, n_stages,
-      static_cast<const double*>(A), gamma, newton_iters, n_phase1,
-      ramp_block, refactor, ni_plateau, stream);
-}
+// Plain C interface, loaded with ctypes: one entry point per model and
+// scalar type, metrotrpl_sdirk_solve_{std,traps}_{f32,f64}. Arrays are
+// contiguous device buffers: dt (B, n_steps), y0 (B, NC, nx), par (B, 17),
+// dx (B,), outputs (B, n_steps + 1). A is the host n_stages x n_stages
+// Butcher table. Returns the launch's cudaError_t (0 on success).
+#define SDIRK_ENTRY(NAME, S, NC)                                            \
+  extern "C" int NAME(const void* dt, const void* y0, const void* par,      \
+                      const void* dx, void* pl, void* tr, void* rs, int B,  \
+                      int nx, int n_steps, int n_stages, const void* A,     \
+                      double gamma, int newton_iters, int n_phase1,         \
+                      int ramp_block, int refactor, int ni_plateau,         \
+                      void* stream) {                                       \
+    return sdirk::launch<S, NC>(dt, y0, par, dx, pl, tr, rs, B, nx,         \
+                                n_steps, n_stages,                          \
+                                static_cast<const double*>(A), gamma,       \
+                                newton_iters, n_phase1, ramp_block,         \
+                                refactor, ni_plateau, stream);              \
+  }
 
-extern "C" int metrotrpl_sdirk_solve_f64(
-    const void* dt, const void* y0, const void* par, const void* dx,
-    void* pl, void* tr, void* rs, int B, int nx, int n_steps, int n_stages,
-    const void* A, double gamma, int newton_iters, int n_phase1,
-    int ramp_block, int refactor, int ni_plateau, void* stream) {
-  return sdirk::launch<double, sdirk::C>(
-      dt, y0, par, dx, pl, tr, rs, B, nx, n_steps, n_stages,
-      static_cast<const double*>(A), gamma, newton_iters, n_phase1,
-      ramp_block, refactor, ni_plateau, stream);
-}
+SDIRK_ENTRY(metrotrpl_sdirk_solve_std_f32, float, 3)
+SDIRK_ENTRY(metrotrpl_sdirk_solve_std_f64, double, 3)
+SDIRK_ENTRY(metrotrpl_sdirk_solve_traps_f32, float, 4)
+SDIRK_ENTRY(metrotrpl_sdirk_solve_traps_f64, double, 4)

@@ -1,10 +1,12 @@
-// Per-cell arithmetic of the std drift-diffusion model and of the 3x3
-// block algebra used by sdirk_solve.cu.
+// Per-cell arithmetic of the drift-diffusion models (std, C=3, and the
+// shallow-trap model, C=4) and of the small block algebra used by
+// sdirk_solve.cu.
 //
 // Every function here is one cell's share of a plane operation in
 // metrotrpl_tpu_torch/physics/models.py or ops/blocktridiag.py, written
 // with the same operand order so the kernel and the plain PyTorch version
-// agree to rounding. State slots per cell: (dN, dD, E_shifted), with
+// agree to rounding. State slots per cell: (dN, dD, E_shifted) for std,
+// (dN, Ntrap, dD, E_shifted) for traps (Model<NC> below), with
 // E_shifted[i] = E_{i+1} (the edge between cells i and i+1).
 //
 // NaN handling: jnp/torch maximum and minimum propagate NaN, and the
@@ -20,10 +22,23 @@
 
 namespace sdirk {
 
-constexpr int C = 3;           // std model components
-constexpr int NB = C * C;      // entries of one block (row-major)
 constexpr int N_PARAM = 17;    // ScaledParams fields, in their order
 constexpr int MAX_LEVELS = 10; // PCR levels for nx <= 1024
+
+// State slots of the NC-component model: the std model (3) carries
+// (dN, dD, E); the traps model (4) carries (dN, Ntrap, dD, E).
+template <int NC>
+struct Model;
+
+template <>
+struct Model<3> {
+  static constexpr int N = 0, D = 1, E = 2;
+};
+
+template <>
+struct Model<4> {
+  static constexpr int N = 0, T = 1, D = 2, E = 3;
+};
 
 template <typename S>
 SDIRK_HD bool is_nan(S x) { return x != x; }
@@ -46,12 +61,12 @@ SDIRK_HD S signfloor(S x) {
   return x >= S(0) ? nan_max(x, eps) : nan_min(x, -eps);
 }
 
-// Scaled parameters of one simulation (the first 14 ScaledParams fields;
-// the 3 traps fields are not read by the std model).
+// Scaled parameters of one simulation (the 17 ScaledParams fields; the
+// last 3 are read by the traps model only).
 template <typename S>
 struct Params {
   S n0t, p0t, drift_n, drift_p, diff_n, diff_p, ks_s, cn_s, cp_s, sf, sb,
-      tauN, tauP, inv_dx;
+      tauN, tauP, inv_dx, kc_s, nt_s, inv_tauE;
 };
 
 template <typename S>
@@ -71,6 +86,9 @@ SDIRK_HD Params<S> load_params(const S* par) {
   p.tauN = par[11];
   p.tauP = par[12];
   p.inv_dx = par[13];
+  p.kc_s = par[14];
+  p.nt_s = par[15];
+  p.inv_tauE = par[16];
   return p;
 }
 
@@ -146,6 +164,23 @@ SDIRK_HD void rhs_cell(int i, int n, const Cell<S>& me, S jn_l, S F_l,
   out[0] = (jn_r - jn_l) * p.inv_dx - R;
   out[1] = -(F_r - F_l) * p.inv_dx;
   out[2] = (i < n - 1) ? -F_r * p.inv_dx : S(0);
+}
+
+// dy/dt at cell i of n (rhs_traps_planes): the std rows in slots
+// (0, 2, 3) plus the cell-local trap exchange, added in the plane code's
+// order; Ntr is the cell's trapped density.
+template <typename S>
+SDIRK_HD void rhs_cell_traps(int i, int n, const Cell<S>& me, S Ntr, S jn_l,
+                             S F_l, S jn_r, S F_r, const Params<S>& p,
+                             S* out) {
+  S o[3];
+  rhs_cell(i, n, me, jn_l, F_l, jn_r, F_r, p, o);
+  const S trap = p.kc_s * me.Ntot * (p.nt_s - Ntr);
+  const S detrap = Ntr * p.inv_tauE;
+  out[0] = o[0] + detrap - trap;
+  out[1] = trap - detrap;
+  out[2] = o[1] + trap - detrap;
+  out[3] = o[2];
 }
 
 // Jacobian entries of one edge k (jac_std_planes edge planes), for the
@@ -248,27 +283,68 @@ SDIRK_HD void jac_cell(int i, int n, const Cell<S>& me, const EdgeJac<S>& ek,
   U[8] = S(0);
 }
 
-// out = A @ B for 3x3 row-major blocks (p_mm operand order)
+// Blocks (L, D, U) of the traps Jacobian at cell i of n
+// (jac_traps_planes): the std 3x3 blocks spliced into slots (0, 2, 3),
+// plus the cell-local trap derivatives on the diagonal block. 4x4
+// row-major.
 template <typename S>
-SDIRK_HD void mm3(const S* A, const S* B, S* out) {
-  for (int i = 0; i < C; ++i)
-    for (int k = 0; k < C; ++k) {
-      S acc = A[i * C + 0] * B[0 * C + k];
-      acc = acc + A[i * C + 1] * B[1 * C + k];
-      acc = acc + A[i * C + 2] * B[2 * C + k];
-      out[i * C + k] = acc;
+SDIRK_HD void jac_cell_traps(int i, int n, const Cell<S>& me, S Ntr,
+                             const EdgeJac<S>& ek, const EdgeJac<S>& ep,
+                             const Params<S>& p, S* L, S* D, S* U) {
+  S L3[9], D3[9], U3[9];
+  jac_cell(i, n, me, ek, ep, p, L3, D3, U3);
+  const int slot[3] = {0, 2, 3};
+  for (int e = 0; e < 16; ++e) {
+    L[e] = S(0);
+    D[e] = S(0);
+    U[e] = S(0);
+  }
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) {
+      const int e4 = slot[a] * 4 + slot[b];
+      L[e4] = L3[a * 3 + b];
+      D[e4] = D3[a * 3 + b];
+      U[e4] = U3[a * 3 + b];
+    }
+  const S tcap = p.kc_s * (p.nt_s - Ntr);      // d(trap)/ddN
+  const S trel = p.kc_s * me.Ntot + p.inv_tauE; // -d(trap - detrap)/dNtr
+  D[0] = D3[0] - tcap;
+  D[1] = trel;
+  D[4] = tcap;
+  D[5] = -trel;
+  D[8] = D3[3] + tcap;
+  D[9] = -trel;
+}
+
+// out = A @ B for NC x NC row-major blocks (p_mm operand order)
+template <int NC, typename S>
+SDIRK_HD void mm(const S* A, const S* B, S* out) {
+  for (int i = 0; i < NC; ++i)
+    for (int k = 0; k < NC; ++k) {
+      S acc = A[i * NC + 0] * B[0 * NC + k];
+      for (int j = 1; j < NC; ++j) acc = acc + A[i * NC + j] * B[j * NC + k];
+      out[i * NC + k] = acc;
     }
 }
 
 // out = A @ x (p_mv operand order)
-template <typename S>
-SDIRK_HD void mv3(const S* A, const S* x, S* out) {
-  for (int i = 0; i < C; ++i) {
-    S acc = A[i * C + 0] * x[0];
-    acc = acc + A[i * C + 1] * x[1];
-    acc = acc + A[i * C + 2] * x[2];
+template <int NC, typename S>
+SDIRK_HD void mv(const S* A, const S* x, S* out) {
+  for (int i = 0; i < NC; ++i) {
+    S acc = A[i * NC + 0] * x[0];
+    for (int j = 1; j < NC; ++j) acc = acc + A[i * NC + j] * x[j];
     out[i] = acc;
   }
+}
+
+// Closed-form unpivoted 2x2 inverse (p_inv_small, C=2)
+template <typename S>
+SDIRK_HD void inv2(const S* A, S* out) {
+  const S idet = S(1) / (A[0] * A[3] - A[1] * A[2]);
+  out[0] = A[3] * idet;
+  out[1] = -A[1] * idet;
+  out[2] = -A[2] * idet;
+  out[3] = A[0] * idet;
 }
 
 // Closed-form unpivoted 3x3 inverse (p_inv_small, C=3)
@@ -293,6 +369,44 @@ SDIRK_HD void inv3(const S* A, S* out) {
   out[6] = c02 * idet;
   out[7] = c12 * idet;
   out[8] = c22 * idet;
+}
+
+// Unpivoted 4x4 inverse by the Schur complement on the 2x2 partition
+// [[P, Q], [R, S]], in p_inv_small's (C=4) order.
+template <typename S>
+SDIRK_HD void inv4(const S* A, S* out) {
+  const S P[4] = {A[0], A[1], A[4], A[5]};
+  const S Q[4] = {A[2], A[3], A[6], A[7]};
+  const S R[4] = {A[8], A[9], A[12], A[13]};
+  const S Sb[4] = {A[10], A[11], A[14], A[15]};
+  S Pinv[4], RPinv[4], RPQ[4], schur[4], Sinv[4], PinvQ[4], PQS[4], corr[4],
+      SRP[4];
+  inv2(P, Pinv);
+  mm<2>(R, Pinv, RPinv);
+  mm<2>(RPinv, Q, RPQ);
+  for (int e = 0; e < 4; ++e) schur[e] = Sb[e] - RPQ[e];
+  inv2(schur, Sinv);
+  mm<2>(Pinv, Q, PinvQ);
+  mm<2>(PinvQ, Sinv, PQS);
+  mm<2>(PQS, RPinv, corr);
+  mm<2>(Sinv, RPinv, SRP);
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      out[i * 4 + j] = Pinv[i * 2 + j] + corr[i * 2 + j];    // top left
+      out[i * 4 + 2 + j] = -PQS[i * 2 + j];                   // top right
+      out[(2 + i) * 4 + j] = -SRP[i * 2 + j];                 // bottom left
+      out[(2 + i) * 4 + 2 + j] = Sinv[i * 2 + j];             // bottom right
+    }
+}
+
+// Inverse of one NC x NC block
+template <int NC, typename S>
+SDIRK_HD void inv(const S* A, S* out) {
+  static_assert(NC == 3 || NC == 4, "std (3) or traps (4) blocks");
+  if (NC == 3)
+    inv3(A, out);
+  else
+    inv4(A, out);
 }
 
 }  // namespace sdirk

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from metrotrpl_tpu_torch import resolve_device
 from metrotrpl_tpu_torch.physics.grid import (
     make_space_grid,
     pad_time_grid,
@@ -262,11 +263,13 @@ def solve_forward_batch(init_dN, raw_params, dx, dt, out_idx, is_trpl,
 
 def solve_single(init_dN, raw_params, thickness, nx, t_out, meas="TRPL",
                  model="std", hmax=4.0, scheme="sdirk3", newton_iters=2,
-                 dtype=torch.float64, device="cpu", refine=1, h0=1e-3,
+                 dtype=torch.float64, device="cuda", refine=1, h0=1e-3,
                  growth=1.25, align_outputs=True, refactor_every=1,
                  tail_growth=1.0, tail_block=1, ramp_block=1,
                  newton_plateau=None):
-    """Convenience single-simulation solve; returns a numpy curve."""
+    """Convenience single-simulation solve on ``device``; returns a numpy
+    curve."""
+    device = resolve_device(device)
     plan = make_forward_plan(
         [thickness], [nx], [meas], [np.asarray(t_out)], hmax=hmax,
         model=model, scheme=scheme, newton_iters=newton_iters, refine=refine,

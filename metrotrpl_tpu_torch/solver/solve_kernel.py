@@ -7,9 +7,10 @@ Counterpart of ``metrotrpl_tpu/solver/pallas_step.py``:
 
 For CPU tensors it runs the plain PyTorch version
 (``solver/sdirk.py:integrate_observables``); for CUDA tensors it launches
-the kernel on the current stream, or raises. ``LAUNCHES`` counts kernel
-launches per dtype, so a run can show that its solves went through the
-kernel.
+the kernel's instantiation for the model (std, C=3, or traps, C=4) and
+dtype on the current stream, or raises. ``LAUNCHES`` counts kernel
+launches per (model, dtype), so a run can show which instantiations its
+solves went through.
 """
 
 import ctypes
@@ -27,8 +28,10 @@ from metrotrpl_tpu_torch.solver.sdirk import SDIRK_SCHEMES, integrate_observable
 
 N_PARAM_FIELDS = len(ScaledParams._fields)
 
-#: kernel launches per dtype, incremented only where the kernel launches
-LAUNCHES = {torch.float32: 0, torch.float64: 0}
+_DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
+#: kernel launches per (model, dtype), incremented only where the kernel
+#: launches
+LAUNCHES = {(m, d): 0 for m in N_COMP for d in _DTYPE_TAG}
 
 _LIB = None
 
@@ -94,14 +97,14 @@ def integrate_observables_cuda(params, y0, dts, dx, model="std",
     """Integrate a batch through every step and stream observables.
 
     params : ScaledParams with (B, 1) fields
-    y0     : (B, C, nx) scaled initial state
+    y0     : (B, C, nx) scaled initial state, C = N_COMP[model]
     dts    : (n_steps, B) step sizes
     dx     : (B,) cell sizes
     Returns (pl_t, trts_t, resid_t), each (n_steps + 1, B): the scaled
     TRPL/TRTS observables and the Newton residual at every knot.
     """
     if model not in N_COMP:
-        raise NotImplementedError(f"model {model!r} is not ported yet")
+        raise ValueError(f"Invalid model {model!r}")
     if y0.device.type == "cpu":
         return integrate_observables_plain(
             params, y0, dts, dx, model=model, scheme_name=scheme_name,
@@ -110,18 +113,20 @@ def integrate_observables_cuda(params, y0, dts, dx, model="std",
             newton_plateau=newton_plateau)
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
-    return _launch(params, y0, dts, dx, scheme_name, newton_iters,
+    return _launch(params, y0, dts, dx, model, scheme_name, newton_iters,
                    refactor_every, n_ramp, ramp_block, newton_plateau)
 
 
-def _launch(params, y0, dts, dx, scheme_name, newton_iters, refactor_every,
-            n_ramp, ramp_block, newton_plateau):
+def _launch(params, y0, dts, dx, model, scheme_name, newton_iters,
+            refactor_every, n_ramp, ramp_block, newton_plateau):
     dtype = y0.dtype
-    if dtype not in LAUNCHES:
+    if dtype not in _DTYPE_TAG:
         raise TypeError(f"the solve kernel takes float32 or float64, "
                         f"not {dtype}")
-    if y0.dim() != 3 or y0.shape[1] != 3:
-        raise ValueError(f"y0 must be (B, 3, nx), got {tuple(y0.shape)}")
+    nc = N_COMP[model]
+    if y0.dim() != 3 or y0.shape[1] != nc:
+        raise ValueError(f"the {model} model's y0 must be (B, {nc}, nx), "
+                         f"got {tuple(y0.shape)}")
     B, C, nx = y0.shape
     if len(params) != N_PARAM_FIELDS:
         raise ValueError(f"params must have the {N_PARAM_FIELDS} "
@@ -152,8 +157,7 @@ def _launch(params, y0, dts, dx, scheme_name, newton_iters, refactor_every,
            for _ in range(3)]
 
     lib = kernel_library().lib
-    fn = (lib.metrotrpl_sdirk_solve_f32 if dtype == torch.float32
-          else lib.metrotrpl_sdirk_solve_f64)
+    fn = getattr(lib, f"metrotrpl_sdirk_solve_{model}_{_DTYPE_TAG[dtype]}")
     A = (ctypes.c_double * scheme.A.size)(*scheme.A.ravel().tolist())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -164,5 +168,5 @@ def _launch(params, y0, dts, dx, scheme_name, newton_iters, refactor_every,
                 int(n_phase1), int(R), int(Fr), int(ni_p), stream)
     if rc != 0:
         raise RuntimeError(f"sdirk_solve kernel launch failed: cudaError {rc}")
-    LAUNCHES[dtype] += 1
+    LAUNCHES[(model, dtype)] += 1
     return out[0].T, out[1].T, out[2].T

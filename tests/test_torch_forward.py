@@ -108,7 +108,8 @@ def test_solve_forward_batch_matches_xla_f64(case):
         ic = t_beer_lambert(torch.as_tensor(fl[0]), torch.as_tensor(al[0]),
                             torch.as_tensor(plan.x_centers[0])).numpy()
         one = tf.solve_single(ic, {k: v[0] for k, v in raw.items()},
-                              311.0, 16, np.linspace(0, 200, 21))
+                              311.0, 16, np.linspace(0, 200, 21),
+                              device="cpu")
         assert rel_err(one, sj[0]) < 1e-9
 
 

@@ -17,13 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from metrotrpl_tpu.workloads import STAUB_TRUE, STAUB_UC
 from metrotrpl_tpu_torch.physics.models import (
     beer_lambert,
     initial_state,
     make_scaled_params,
 )
 from metrotrpl_tpu_torch.solver import solve_kernel as sk
+from metrotrpl_tpu_torch.workloads import STAUB_TRUE, STAUB_UC, TRAPS_TRUE
 
 
 @pytest.fixture
@@ -41,15 +41,19 @@ def _rel_err(a, b):
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
 
 
-def _kernel_inputs(B, nx, n_steps, dtype, device, seed=0, n_ramp=None):
+def _kernel_inputs(B, nx, n_steps, dtype, device, seed=0, n_ramp=None,
+                   model="std"):
     """Scaled params, initial state, step sizes and cell sizes of B staub
-    rows (+-0.1 dex), as the wrapper takes them. Steps grow geometrically
-    over the first n_ramp (default: all) and stay constant after, as a
-    chord plan's grid does."""
+    rows (+-0.1 dex; the traps model adds its trap parameters), as the
+    wrapper takes them. Steps grow geometrically over the first n_ramp
+    (default: all) and stay constant after, as a chord plan's grid does."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
-    raw = {k: t(v * STAUB_UC.get(k, 1) * 10.0 ** rng.uniform(-0.1, 0.1, B))
-           for k, v in STAUB_TRUE.items()}
+    truth = {k: v * STAUB_UC.get(k, 1) for k, v in STAUB_TRUE.items()}
+    if model == "traps":
+        truth.update(TRAPS_TRUE)
+    raw = {k: t(v * 10.0 ** rng.uniform(-0.1, 0.1, B))
+           for k, v in truth.items()}
     th = np.where(np.arange(B) % 2, 2000.0, 311.0)
     dx = t(th / nx)
     x = t((np.arange(nx)[None, :] + 0.5) * (th / nx)[:, None])
@@ -58,7 +62,7 @@ def _kernel_inputs(B, nx, n_steps, dtype, device, seed=0, n_ramp=None):
     ns = torch.amax(init, dim=-1) + raw["p0"] + raw["n0"]
     p = make_scaled_params(raw, dx, ns)
     p = type(p)(*(a[..., None] for a in p))
-    y0 = initial_state(init, ns[..., None])
+    y0 = initial_state(init, ns[..., None], model=model)
     n_ramp = n_steps if n_ramp is None else n_ramp
     dt = np.concatenate([np.geomspace(1e-3, 2.0, n_ramp),
                          np.full(n_steps - n_ramp, 2.0)])
@@ -75,7 +79,9 @@ def test_wrapper_runs_plain_version_on_cpu_without_launching():
     pl, tr, rs = sk.integrate_observables_cuda(p, y0, dts, dx)
     assert pl.shape == tr.shape == rs.shape == (6, 3)
     assert torch.isfinite(pl).all() and (rs[0] == 0).all()
-    assert sk.LAUNCHES == {torch.float32: 0, torch.float64: 0}
+    assert set(sk.LAUNCHES.values()) == {0}
+    assert set(sk.LAUNCHES) == {(m, d) for m in ("std", "traps")
+                                for d in (torch.float32, torch.float64)}
     assert sk._LIB is None
 
 
@@ -111,9 +117,30 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, rtol):
     sk.reset_launch_counts()
     out_k = sk.integrate_observables_cuda(p, y0, dts, dx, **kw)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES[dtype] == 1
+    assert sk.LAUNCHES[("std", dtype)] == 1
     out_p = sk.integrate_observables_plain(p, y0, dts, dx, **kw)
-    assert sk.LAUNCHES[dtype] == 1
+    assert sum(sk.LAUNCHES.values()) == 1
+    for a, b in zip(out_k[:2], out_p[:2]):
+        assert _rel_err(a.cpu().numpy(), b.cpu().numpy()) < rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-9),
+                                         (torch.float32, 1e-4)])
+def test_cuda_traps_kernel_matches_plain_version(cuda_device, dtype, rtol):
+    """The traps instantiation (C=4) against the plain PyTorch version on
+    the card, chord phases included, at the std test's tolerances:
+    float64 rel 1e-9, float32 rtol 1e-4 at nx=32. The call launches the
+    traps instantiation and nothing else."""
+    p, y0, dts, dx = _kernel_inputs(6, 32, 40, dtype, cuda_device,
+                                    n_ramp=20, model="traps")
+    kw = dict(model="traps", refactor_every=4, n_ramp=20)
+    sk.reset_launch_counts()
+    out_k = sk.integrate_observables_cuda(p, y0, dts, dx, **kw)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[("traps", dtype)] == 1
+    assert sum(sk.LAUNCHES.values()) == 1
+    out_p = sk.integrate_observables_plain(p, y0, dts, dx, **kw)
     for a, b in zip(out_k[:2], out_p[:2]):
         assert _rel_err(a.cpu().numpy(), b.cpu().numpy()) < rtol
 
@@ -127,6 +154,8 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         sk.integrate_observables_cuda(p, y0, dts, dx.double())
     with pytest.raises(ValueError):
         sk.integrate_observables_cuda(p, y0, dts[:, :1], dx)
+    with pytest.raises(ValueError, match="traps"):   # a std state
+        sk.integrate_observables_cuda(p, y0, dts, dx, model="traps")
 
 
 _HARNESS = r"""
@@ -134,19 +163,24 @@ _HARNESS = r"""
 #include <vector>
 #include "sdirk_solve.cuh"
 using namespace sdirk;
-// Reads nx, the 17 scaled parameters and the (3, nx) state; prints, per
-// cell, the RHS, the Jacobian blocks (L, D, U) and inv3(I - 0.1 D), with
-// each edge computed once and shared as sdirk_solve.cu does.
-int main() {
+// HARNESS_NC (3: std, 4: traps) comes from the command line. Reads nx,
+// the 17 scaled parameters and the (C, nx) state; prints, per cell, the RHS,
+// the Jacobian blocks (L, D, U) and inv(I - 0.1 D), with each edge
+// computed once and shared as sdirk_solve.cu does.
+template <int C>
+int run() {
+  using Mo = Model<C>;
+  constexpr int NB = C * C;
   int n;
   if (std::scanf("%d", &n) != 1) return 1;
   double par[N_PARAM];
   for (double& v : par) std::scanf("%lf", &v);
-  std::vector<double> y(3 * n);
+  std::vector<double> y(C * n);
   for (double& v : y) std::scanf("%lf", &v);
   const Params<double> p = load_params(par);
   std::vector<Cell<double>> c(n);
-  for (int i = 0; i < n; ++i) c[i] = make_cell(y[i], y[n + i], y[2 * n + i], p);
+  for (int i = 0; i < n; ++i)
+    c[i] = make_cell(y[Mo::N * n + i], y[Mo::D * n + i], y[Mo::E * n + i], p);
   std::vector<double> jn(n), F(n);
   std::vector<EdgeJac<double>> ej(n);
   for (int i = 0; i < n; ++i) {
@@ -158,29 +192,39 @@ int main() {
     double jl, Fl;
     if (i > 0) { jl = jn[i - 1]; Fl = F[i - 1]; }
     else { jl = surface_flux(c[0], p.sf); Fl = 0.0; }
-    double out[3], L[NB], D[NB], U[NB], M[NB], Mi[NB];
-    rhs_cell(i, n, c[i], jl, Fl, jn[i], F[i], p, out);
+    double out[C], L[NB], D[NB], U[NB], M[NB], Mi[NB];
     EdgeJac<double> ep = {0, 0, 0, 0, 0, 0, 0, 0};
     if (i > 0) ep = ej[i - 1];
-    jac_cell(i, n, c[i], ej[i], ep, p, L, D, U);
-    for (int e = 0; e < NB; ++e) M[e] = (e % 4 == 0 ? 1.0 : 0.0) - 0.1 * D[e];
-    inv3(M, Mi);
+    if constexpr (C == 3) {
+      rhs_cell(i, n, c[i], jl, Fl, jn[i], F[i], p, out);
+      jac_cell(i, n, c[i], ej[i], ep, p, L, D, U);
+    } else {
+      const double Ntr = y[Mo::T * n + i];
+      rhs_cell_traps(i, n, c[i], Ntr, jl, Fl, jn[i], F[i], p, out);
+      jac_cell_traps(i, n, c[i], Ntr, ej[i], ep, p, L, D, U);
+    }
+    for (int e = 0; e < NB; ++e)
+      M[e] = (e % (C + 1) == 0 ? 1.0 : 0.0) - 0.1 * D[e];
+    inv<C>(M, Mi);
     for (double v : out) std::printf("%.17g ", v);
-    for (const double* A : {L, D, U, Mi})
+    for (const double* A : {(const double*)L, (const double*)D,
+                            (const double*)U, (const double*)Mi})
       for (int e = 0; e < NB; ++e) std::printf("%.17g ", A[e]);
     std::printf("\n");
   }
   return 0;
 }
+
+int main() { return run<HARNESS_NC>(); }
 """
 
 
-def test_kernel_cell_math_matches_plain_version_on_cpu(tmp_path):
-    """The kernel's per-cell arithmetic (solver/csrc/sdirk_solve.cuh),
-    built for the CPU with g++ and no contracted multiply-adds (as nvcc
-    builds it with -fmad=false), against the plain PyTorch RHS, symbolic
-    Jacobian and 3x3 inverse at float64: each plane within 1e-13 of its
-    max magnitude (libm and reassociation are the only differences)."""
+def _cell_math_vs_plain(tmp_path, model):
+    """Build the per-cell harness for ``model`` with g++ (no contracted
+    multiply-adds, as nvcc builds the kernel with -fmad=false), feed it a
+    random state, and return its output and the plain PyTorch RHS,
+    Jacobian blocks and block inverse of I - 0.1 D, as (nx, C + 4 C^2)
+    columns."""
     from metrotrpl_tpu_torch.ops.blocktridiag import p_inv_small
     from metrotrpl_tpu_torch.physics import models as tm
     from metrotrpl_tpu_torch.solver._build import CSRC
@@ -188,39 +232,64 @@ def test_kernel_cell_math_matches_plain_version_on_cpu(tmp_path):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
+    C = tm.N_COMP[model]
     src = tmp_path / "harness.cpp"
     src.write_text(_HARNESS)
     exe = tmp_path / "harness"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off",
-                    "-I", str(CSRC), str(src), "-o", str(exe)], check=True)
+                    f"-DHARNESS_NC={C}", "-I", str(CSRC), str(src), "-o",
+                    str(exe)], check=True)
 
     nx = 16
-    p, y0, _, _ = _kernel_inputs(1, nx, 2, torch.float64, "cpu", seed=3)
+    p, y0, _, _ = _kernel_inputs(1, nx, 2, torch.float64, "cpu", seed=3,
+                                 model=model)
     rng = np.random.default_rng(4)
     y = y0[0].numpy().copy()
-    y[1] = rng.uniform(-1e-3, 1e-3, nx)          # charge separation
-    y[2] = rng.uniform(-1e-2, 1e-2, nx)          # field
+    slot = {"std": (1, 2), "traps": (2, 3)}[model]
+    y[slot[0]] = rng.uniform(-1e-3, 1e-3, nx)    # charge separation
+    y[slot[1]] = rng.uniform(-1e-2, 1e-2, nx)    # field
+    if model == "traps":
+        y[1] = rng.uniform(0.0, 2.0, nx) * p.nt_s.item()   # trapped density
     par = torch.cat([f.reshape(1) for f in p]).numpy()
     stdin = " ".join(map(repr, [nx, *par.tolist(), *y.ravel().tolist()]))
     out = subprocess.run([str(exe)], input=stdin, capture_output=True,
                          text=True, check=True).stdout
     got = np.array([[float(v) for v in line.split()]
-                    for line in out.strip().splitlines()])   # (nx, 39)
+                    for line in out.strip().splitlines()])
 
-    yt = tuple(torch.as_tensor(y[c])[None] for c in range(3))
-    rhs = np.stack([r[0].numpy() for r in tm.rhs_std_planes(yt, p)])
-    L, D, U = tm.jac_std_planes(yt, p)
+    yt = tuple(torch.as_tensor(y[c])[None] for c in range(C))
+    rhs = [r[0].numpy() for r in tm.RHS_PLANES[model](yt, p)]
+    L, D, U = tm.JAC_PLANES[model](yt, p)
     M = tuple(tuple((1.0 if a == b else 0.0) - 0.1 * D[a][b]
-                    for b in range(3)) for a in range(3))
+                    for b in range(C)) for a in range(C))
     Mi = p_inv_small(M)
+    want = np.stack(rhs + [A[a][b][0].numpy() for A in (L, D, U, Mi)
+                           for a in range(C) for b in range(C)], axis=1)
+    assert got.shape == want.shape == (nx, C + 4 * C * C)
+    return got, want
 
-    def plane_rel(a, b):
-        return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
 
-    for c in range(3):
-        assert plane_rel(got[:, c], rhs[c]) < 1e-13
-    for k, A in enumerate((L, D, U, Mi)):
-        for a in range(3):
-            for b in range(3):
-                col = 3 + 9 * k + 3 * a + b
-                assert plane_rel(got[:, col], A[a][b][0].numpy()) < 1e-13
+def _plane_rel(a, b):
+    return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
+
+
+def test_kernel_cell_math_matches_plain_version_on_cpu(tmp_path):
+    """The kernel's per-cell arithmetic of the std model
+    (solver/csrc/sdirk_solve.cuh), built for the CPU with g++ and no
+    contracted multiply-adds (as nvcc builds it with -fmad=false), against
+    the plain PyTorch RHS, symbolic Jacobian and 3x3 inverse at float64:
+    each plane within 1e-13 of its max magnitude (libm and reassociation
+    are the only differences)."""
+    got, want = _cell_math_vs_plain(tmp_path, "std")
+    for col in range(want.shape[1]):
+        assert _plane_rel(got[:, col], want[:, col]) < 1e-13, col
+
+
+def test_kernel_traps_cell_math_matches_plain_version_on_cpu(tmp_path):
+    """The traps model's per-cell arithmetic (rhs_cell_traps,
+    jac_cell_traps, inv4 in the Schur order of p_inv_small) against the
+    plain PyTorch RHS, Jacobian and 4x4 inverse at float64, as the std
+    test: each plane within 1e-13 of its max magnitude."""
+    got, want = _cell_math_vs_plain(tmp_path, "traps")
+    for col in range(want.shape[1]):
+        assert _plane_rel(got[:, col], want[:, col]) < 1e-13, col

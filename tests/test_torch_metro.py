@@ -1,7 +1,8 @@
 """PyTorch port end to end: metro() on the CPU writes checkpoints the JAX
 package loads, with the JAX metro's History layout; resume repeats the
-uninterrupted walk; the port imports and builds the flagship plans with
-jax unimportable; asking for CUDA where there is none raises."""
+uninterrupted walk; the port imports and builds the flagship and traps
+plans with jax and the JAX package unimportable; asking for CUDA where
+there is none raises."""
 
 import os
 import subprocess
@@ -80,12 +81,15 @@ def test_metro_resume_repeats_uninterrupted_walk(tmp_path):
 
 
 def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
-    """With jax unimportable, every port module imports, the flagship
-    config (write-example --fast, stand-in data) builds its likelihood and
-    move plans, and the evaluation tensors are made on the CPU."""
+    """With jax and the JAX package unimportable, every port module and
+    chip_smoke.py import, write-example writes the flagship config (with
+    stand-in data), chip_smoke.py writes the traps config, the port reads
+    both and builds their likelihood and move plans, and the evaluation
+    tensors are made on the CPU."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
+        sys.modules["metrotrpl_tpu"] = None    # and of the JAX package
         import importlib, pkgutil
         import numpy as np
         import metrotrpl_tpu_torch
@@ -94,33 +98,42 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         for n in names:
             importlib.import_module(n)
         assert "metrotrpl_tpu_torch.solver.solve_kernel" in names
+        assert "metrotrpl_tpu_torch.config.validate" in names
+        import chip_smoke
         from metrotrpl_tpu_torch.cli import main
         d = {str(tmp_path)!r}
         t = np.linspace(0, 2000, 501)
         rows = [np.stack([t, 1e17 * np.exp(-t / 400), 1e15 + 0 * t], 1)
                 for _ in range(6)]
         np.savetxt(d + "/meas.csv", np.concatenate(rows), delimiter=",")
+        flu = "Inputs/staub_MAPI_threepower_twothick_fluences.csv"
         main(["write-example", d + "/cfg.txt", "--fast", "--init-cond",
-              "Inputs/staub_MAPI_threepower_twothick_fluences.csv",
-              "--measurement", d + "/meas.csv", "--output", d + "/out"])
-        from metrotrpl_tpu.config import get_data, get_initpoints, read_config
+              flu, "--measurement", d + "/meas.csv", "--output",
+              d + "/out"])
+        chip_smoke.write_traps_config(d + "/traps.txt", flu,
+                                      d + "/meas.csv", d + "/out_t", 10, 5)
+        from metrotrpl_tpu_torch.config import (
+            get_data, get_initpoints, read_config)
         from metrotrpl_tpu_torch.inference.likelihood import (
             build_likelihood_plan, make_eval_logll, resolve_solver_mode)
         from metrotrpl_tpu_torch.inference.moves import build_move_plan
-        sim, pi, flags, mc = read_config(d + "/cfg.txt")
-        ini = get_initpoints(mc["init_cond_path"], flags)
-        data = get_data(mc["measurement_path"], flags, mc)
-        hm, al = resolve_solver_mode(mc, 4.0)
-        plan = build_likelihood_plan(sim, pi, mc, data, ini, hmax=hm,
-                                     align_outputs=al,
-                                     refactor_every=mc["refactor_every"])
-        assert plan.fwd[0][1].nx == 128
-        assert plan.fwd[0][2].solve_dtype == "float64"
-        build_move_plan(pi, mc)
-        make_eval_logll(plan, device="cpu")
+        for cfg, model in (("/cfg.txt", "std"), ("/traps.txt", "traps")):
+            sim, pi, flags, mc = read_config(d + cfg)
+            ini = get_initpoints(mc["init_cond_path"], flags)
+            data = get_data(mc["measurement_path"], flags, mc)
+            hm, al = resolve_solver_mode(mc, 4.0)
+            plan = build_likelihood_plan(sim, pi, mc, data, ini, hmax=hm,
+                                         align_outputs=al,
+                                         refactor_every=mc["refactor_every"])
+            assert plan.fwd[0][1].nx == 128
+            assert plan.fwd[0][1].model == model
+            assert plan.fwd[0][2].solve_dtype == "float64"
+            build_move_plan(pi, mc)
+            make_eval_logll(plan, device="cpu")
         assert sys.modules["jax"] is None
-        assert not any(m.startswith("jax.") or m == "jaxlib"
-                       for m in sys.modules)
+        assert sys.modules["metrotrpl_tpu"] is None
+        assert not any(m.startswith(("jax.", "metrotrpl_tpu."))
+                       or m == "jaxlib" for m in sys.modules)
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import rel_err, staub_raw
+from torch_parity import params_both, plane_rel, rel_err, staub_raw
 
 import metrotrpl_tpu.physics.grid as jgrid
 import metrotrpl_tpu_torch.physics.grid as tgrid
@@ -18,16 +18,6 @@ from metrotrpl_tpu_torch.ops import blocktridiag as tbt
 from metrotrpl_tpu_torch.physics import models as tm
 
 T64 = torch.float64
-
-
-def _plane_rel(a, b):
-    """max |a - b| over a plane, relative to the plane's max |b| (planes
-    hold exact zeros and cancelling entries, so a pointwise relative error
-    is meaningless there)."""
-    a = np.asarray(a, dtype=float)
-    b = np.asarray(b, dtype=float)
-    scale = max(float(np.max(np.abs(b))), 1e-300)
-    return float(np.max(np.abs(a - b))) / scale
 
 
 @pytest.mark.parametrize("kw", [
@@ -71,23 +61,12 @@ def _random_state(B, nx, seed):
     return (dN, dD, E), raw, dx, ns
 
 
-def _params_both(raw, dx, ns):
-    pj = jm.make_scaled_params({k: jnp.asarray(v) for k, v in raw.items()},
-                               jnp.asarray(dx), jnp.asarray(ns))
-    pj = jax.tree.map(lambda a: jnp.asarray(a)[..., None], pj)
-    pt = tm.make_scaled_params(
-        {k: torch.as_tensor(v, dtype=T64) for k, v in raw.items()},
-        torch.as_tensor(dx, dtype=T64), torch.as_tensor(ns, dtype=T64))
-    pt = type(pt)(*(a[..., None] for a in pt))
-    return pj, pt
-
-
 def test_rhs_and_jacobian_planes_match_jax():
     """RHS and (L, D, U) Jacobian planes at float64: each plane within
     1e-12 of its max magnitude (same algebra, op for op; only libm and
     fused-op rounding differ)."""
     y, raw, dx, ns = _random_state(4, 16, seed=1)
-    pj, pt = _params_both(raw, dx, ns)
+    pj, pt = params_both(raw, dx, ns)
     for fj, ft in zip(pj, pt):
         assert rel_err(ft.numpy(), np.asarray(fj)) < 1e-14
     yj = tuple(jnp.asarray(a) for a in y)
@@ -95,13 +74,13 @@ def test_rhs_and_jacobian_planes_match_jax():
     rj = jax.jit(jm.rhs_std_planes)(yj, pj)
     rt = tm.rhs_std_planes(yt, pt)
     for a, b in zip(rt, rj):
-        assert _plane_rel(a.numpy(), b) < 1e-12
+        assert plane_rel(a.numpy(), b) < 1e-12
     Jj = jax.jit(jm.jac_std_planes)(yj, pj)
     Jt = tm.jac_std_planes(yt, pt)
     for Mj, Mt in zip(Jj, Jt):
         for rowj, rowt in zip(Mj, Mt):
             for a, b in zip(rowt, rowj):
-                assert _plane_rel(a.numpy(), np.asarray(b)) < 1e-12
+                assert plane_rel(a.numpy(), np.asarray(b)) < 1e-12
 
 
 def test_jacobian_matches_autograd():
@@ -109,7 +88,7 @@ def test_jacobian_matches_autograd():
     dense Jacobian of the RHS (float64; relative to the largest entry)."""
     nx = 8
     y, raw, dx, ns = _random_state(1, nx, seed=2)
-    _, pt = _params_both(raw, dx, ns)
+    _, pt = params_both(raw, dx, ns)
     y0 = torch.as_tensor(np.concatenate(y, axis=-1)[0], dtype=T64)
 
     def f(flat):

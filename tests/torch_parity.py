@@ -17,7 +17,14 @@ import torch
 
 from metrotrpl_tpu.oracle import solve_reference
 from metrotrpl_tpu.oracle.scipy_reference import beer_lambert as bl_np
+from metrotrpl_tpu.physics import models as jm
+from metrotrpl_tpu.physics.models import beer_lambert as j_beer_lambert
+from metrotrpl_tpu.solver import forward as jf
 from metrotrpl_tpu.workloads import STAUB_NAMES, STAUB_TRUE, STAUB_UC
+from metrotrpl_tpu_torch.physics import models as tm
+from metrotrpl_tpu_torch.physics.models import beer_lambert as t_beer_lambert
+from metrotrpl_tpu_torch.solver import forward as tf
+from metrotrpl_tpu_torch.workloads import TRAPS_TRUE
 
 # the suite runs under 6 xdist workers; keep each one's torch pool small
 torch.set_num_threads(2)
@@ -26,45 +33,59 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RIDGE_STATES = os.path.join(REPO, "scripts", ".probe_r14_ridge_states.npz")
 
 
+#: entry-unit truth of the traps model: the staub truth plus the trap
+#: parameters, whose unit conversion is 1
+TRAPS_TRUTH = {**STAUB_TRUE, **TRAPS_TRUE}
+
+
 def staub_raw(**over):
     """Staub true parameters in model units."""
     base = {**STAUB_TRUE, **over}
     return {k: v * STAUB_UC.get(k, 1) for k, v in base.items()}
 
 
-def param_info(trial_move=0.01, prior=None, inactive=("n0", "eps", "Tm")):
-    names = list(STAUB_NAMES)
+def traps_raw(**over):
+    """Traps-model true parameters in model units."""
+    base = {**TRAPS_TRUTH, **over}
+    return {k: v * STAUB_UC.get(k, 1) for k, v in base.items()}
+
+
+def param_info(trial_move=0.01, prior=None, inactive=("n0", "eps", "Tm"),
+               model="std"):
+    names = list(STAUB_NAMES) + (list(TRAPS_TRUE) if model == "traps"
+                                 else [])
     return {
         "names": names,
         "unit_conversions": dict(STAUB_UC),
         "do_log": {n: 1 for n in names},
         "active": {n: (0 if n in inactive else 1) for n in names},
-        "init_guess": dict(STAUB_TRUE),
+        "init_guess": {n: TRAPS_TRUTH[n] for n in names},
         "prior_dist": prior or {n: (1e-30, 1e30) for n in names},
         "trial_move": {n: trial_move for n in names},
     }
 
 
 def synth_config(nx=16, lengths=(311.0, 2000.0), nt=11, t_end=200.0,
-                 fluences=None, unc=0.05, **mcmc_over):
+                 fluences=None, unc=0.05, model="std", **mcmc_over):
     """A staub-shaped config: TRPL curves from the float64 LSODA oracle at
-    the staub truth, fluence initial condition, log-y data."""
+    the staub truth (plus the trap parameters for model="traps"), fluence
+    initial condition, log-y data."""
     M = len(lengths)
     fluences = fluences or [2.12e11] * M
     t = np.linspace(0, t_end, nt)
-    pm = staub_raw()
+    pm = traps_raw() if model == "traps" else staub_raw()
     times, vals, uncs = [], [], []
     for m in range(M):
         dx = lengths[m] / nx
         x = np.linspace(dx / 2, lengths[m] - dx / 2, nx)
         ic = bl_np(fluences[m] * 1e-14, 6e4 * 1e-7, x)
-        pl = solve_reference(ic, lengths[m], nx, t, pm)
+        pl = solve_reference(ic, lengths[m], nx, t, pm, model=model)
         times.append(t)
         vals.append(np.log10(pl))
         uncs.append(np.full(nt, unc))
     sim_info = {"lengths": list(lengths), "nx": [nx] * M,
                 "meas_types": ["TRPL"] * M, "num_meas": M}
-    mcmc = {"ini_mode": "fluence", "model": "std", "log_y": 1,
+    mcmc = {"ini_mode": "fluence", "model": model, "log_y": 1,
             "model_uncertainty": 1.0, **mcmc_over}
     iniPar = np.array([[f, 6e4, 1] for f in fluences])
     return sim_info, mcmc, (times, vals, uncs), iniPar
@@ -75,7 +96,7 @@ def staub_states(pi, n, seed, spread=0.1):
     the active parameters."""
     rng = np.random.default_rng(seed)
     names = pi["names"]
-    base = np.array([STAUB_TRUE[nm] for nm in names], dtype=float)
+    base = np.array([TRAPS_TRUTH[nm] for nm in names], dtype=float)
     active = np.array([bool(pi["active"][nm]) for nm in names])
     return base[None, :] * 10.0 ** (
         rng.uniform(-spread, spread, (n, len(names))) * active[None, :])
@@ -88,6 +109,30 @@ def ridge_states(pi):
     return np.stack([d[nm] if nm in d.files
                      else np.full(8, STAUB_TRUE[nm], dtype=float)
                      for nm in pi["names"]], axis=1)
+
+
+def plane_rel(a, b):
+    """max |a - b| over a plane relative to the plane's max |b| (planes
+    hold exact zeros and cancelling entries, so a pointwise relative error
+    is meaningless there)."""
+    a = np.asarray(a, dtype=float)
+    b = np.asarray(b, dtype=float)
+    scale = max(float(np.max(np.abs(b))), 1e-300)
+    return float(np.max(np.abs(a - b))) / scale
+
+
+def params_both(raw, dx, ns):
+    """ScaledParams with (B, 1) fields from the same numpy inputs, for the
+    JAX package and for the port (float64)."""
+    pj = jm.make_scaled_params({k: jnp.asarray(v) for k, v in raw.items()},
+                               jnp.asarray(dx), jnp.asarray(ns))
+    pj = jax.tree.map(lambda a: jnp.asarray(a)[..., None], pj)
+    t64 = torch.float64
+    pt = tm.make_scaled_params(
+        {k: torch.as_tensor(v, dtype=t64) for k, v in raw.items()},
+        torch.as_tensor(dx, dtype=t64), torch.as_tensor(ns, dtype=t64))
+    pt = type(pt)(*(a[..., None] for a in pt))
+    return pj, pt
 
 
 def rel_err(a, b):
@@ -107,6 +152,32 @@ def compare_eval(out_t, out_j, dll):
         assert np.max(np.abs(a[ok] - b[ok]), initial=0.0) <= dll, key
     np.testing.assert_array_equal(out_t["fail_states"].cpu().numpy(),
                                   np.asarray(out_j["fail_states"]))
+
+
+def solve_traps_both(plan, raw, fl, al, dtype_np, backend, block_b=None,
+                     **kw):
+    """A traps batch through the JAX solve (jit, ``backend``) and the
+    port's plain solve on the same numpy inputs; returns numpy (port,
+    JAX) results."""
+    x = np.asarray(plan.x_centers, dtype_np)
+    jw = None if plan.out_w is None else jnp.asarray(plan.out_w, dtype_np)
+    init_j = j_beer_lambert(jnp.asarray(fl), jnp.asarray(al), jnp.asarray(x))
+    out_j = jax.jit(lambda i, r: jf.solve_forward_batch(
+        i, r, jnp.asarray(plan.dx, dtype_np), jnp.asarray(plan.dt, dtype_np),
+        jnp.asarray(plan.out_idx), jnp.asarray(plan.is_trpl), model="traps",
+        backend=backend, block_b=block_b, out_w=jw, **kw))(
+            init_j, {k: jnp.asarray(v) for k, v in raw.items()})
+    tdt = torch.float64 if dtype_np == np.float64 else torch.float32
+    t = lambda a, d=tdt: torch.as_tensor(np.asarray(a), dtype=d)  # noqa
+    init_t = t_beer_lambert(t(fl), t(al), t(x))
+    out_t = tf.solve_forward_batch(
+        init_t, {k: t(v) for k, v in raw.items()}, t(plan.dx), t(plan.dt),
+        t(plan.out_idx, torch.int64), t(plan.is_trpl, torch.bool),
+        model="traps", out_w=None if plan.out_w is None else t(plan.out_w),
+        **kw)
+    if isinstance(out_t, tuple):
+        return ([a.numpy() for a in out_t], [np.asarray(a) for a in out_j])
+    return out_t.numpy(), np.asarray(out_j)
 
 
 def assert_plans_equal(mine, ref, path="plan"):
