@@ -18,15 +18,17 @@ Phases, each of which raises on failure:
 3. The 8 high-mobility ridge states (scripts/.probe_r14_ridge_states.npz)
    through the port's eval_logll on the flagship plan in a float32 walk:
    the float64 rung must launch and every logll_T must be finite.
-4. The std main path: `cli write-example --fast` into chip_smoke_out/,
-   then `cli mcmc --device cuda` for 200 iterations, checkpointing every
-   100. The pickle must load, the cold chain's acceptance lie in
+4. The std main path: the `write-example --fast` config
+   (cli.write_example_config) into chip_smoke_out/, then `cli mcmc
+   --device cuda` for 200 iterations, checkpointing every 100. The
+   pickle must load, the cold chain's acceptance lie in
    [0.05, 0.8], the float32 std kernel must have launched at least once
    per iteration and the float64 rung at least once.
 5. The traps kernel (C=4) against its plain version as in phase 2, on the
-   traps config (the flagship geometry under the shallow-trap model, data
-   synthesized by the float64 LSODA oracle at the traps truth): float32
-   on the fast plan, float64 on the rung plan, same tolerances.
+   traps config (the same builder's flagship geometry under the
+   shallow-trap model, data synthesized by the float64 LSODA oracle at
+   the traps truth): float32 on the fast plan, float64 on the rung plan,
+   same tolerances.
 6. The traps ladder: 8 states with mu_n just above the escalation trigger
    (40 cm^2/Vs) through eval_logll in a float32 walk: the float64 traps
    kernel must launch and every logll_T must be finite.
@@ -38,10 +40,11 @@ Launch counts are zeroed just before each main path (phases 4 and 7) and
 read just after it. The last three lines of standard output are the
 kernels JSON object (one entry per instantiation, with its launches on
 its main path, its error against the plain version, CUDA-event times of
-kernel and plain version, and its bound: the larger of the FLOPs it does
-over the card's non-tensor-core peak and its bytes over the memory rate),
-the nvidia-smi line and {"ok": true, "device": {...}}. Without CUDA, or
-outside the repository, it exits non-zero and prints no result.
+kernel and plain version, and its bound: the larger of the FLOPs it needs
+(solve_kernel.solve_flops) over the card's non-tensor-core peak and its
+bytes over the memory rate), the nvidia-smi line and {"ok": true,
+"device": {...}}. Without CUDA, or outside the repository, it exits
+non-zero and prints no result.
 """
 
 import json
@@ -61,23 +64,6 @@ N_ITERS_TRAPS = 100    # traps walk
 #: non-tensor-core FLOP/s per scalar type, and the HBM rate in bytes/s
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
-
-# FLOPs (+, -, *, /, negation) of one cell, counted from the kernel's
-# arithmetic (solver/csrc/sdirk_solve.cuh and .cu), per model: the RHS
-# pass (two make_cell 16, edge currents 21, rhs_cell 18 / traps 27), the
-# factorization preamble (two make_cell 16, edge Jacobian 36, jac_cell 76
-# / traps 84, I - hg*J 6*C^2), one PCR factor level (block inverse 42 /
-# Schur 108, six block products C^2(2C-1) each, 4*C^2 updates), the final
-# inverse, one PCR apply level (two mat-vecs and 2C adds), the final
-# mat-vec, the Newton update bookkeeping (6C + 2), the per-step stage
-# bookkeeping (18 C) and the streamed observables (13 per knot).
-CELL_FLOPS = {
-    3: dict(rhs=55, fac=182, lvl=348, inv=42, app=36, mv=15, upd=20,
-            step=54, emit=13),
-    4: dict(rhs=64, fac=232, lvl=844, inv=108, app=64, mv=28, upd=26,
-            step=72, emit=13),
-}
-
 
 def nvidia_smi_line():
     out = subprocess.run(
@@ -102,97 +88,26 @@ def cuda_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def solve_bound(nc, dtype, B, nx, fp_x):
+def solve_bound(dtype, B, nx, fp_x):
     """(bound_ms, bound_by, flops, bytes) of one kernel call on plan fp_x:
-    the larger of its FLOPs (CELL_FLOPS, this plan's steps, Newton
-    iterations and factorizations) over the peak for its type, and of its
-    bytes (inputs read once, outputs written once) over the memory rate."""
-    f = CELL_FLOPS[nc]
-    levels = max(nx - 1, 0).bit_length()
-    n_stages = 3                          # sdirk3: three implicit stages
-    it = f["rhs"] + f["upd"] + levels * f["app"] + f["mv"]
-    fac = f["fac"] + levels * f["lvl"] + f["inv"]
-    n = fp_x.n_steps
-    if fp_x.n_ramp is None:
-        phases = [(n, 1, fp_x.newton_iters)]
-    else:
-        ni_p = fp_x.newton_plateau or fp_x.newton_iters
-        phases = [(fp_x.n_ramp, fp_x.ramp_block, fp_x.newton_iters),
-                  (n - fp_x.n_ramp, fp_x.refactor_every, ni_p)]
-    per_cell = f["emit"]
-    for steps, block, ni in phases:
-        per_cell += steps * (n_stages * ni * it + f["step"] + f["emit"])
-        per_cell += steps // block * fac
-    flops = per_cell * nx * B
+    the larger of the FLOPs it needs (solve_kernel.solve_flops, on this
+    plan's steps, Newton iterations and factorizations) over the peak for
+    its type, and of its bytes (inputs read once, outputs written once)
+    over the memory rate."""
+    from metrotrpl_tpu_torch.physics.models import N_COMP
+    from metrotrpl_tpu_torch.solver.solve_kernel import solve_flops
+
+    flops = B * solve_flops(
+        fp_x.model, nx, fp_x.n_steps, scheme_name=fp_x.scheme,
+        newton_iters=fp_x.newton_iters, refactor_every=fp_x.refactor_every,
+        n_ramp=fp_x.n_ramp, ramp_block=fp_x.ramp_block,
+        newton_plateau=fp_x.newton_plateau)
+    n, nc = fp_x.n_steps, N_COMP[fp_x.model]
     size = torch.finfo(dtype).bits // 8
     nbytes = size * (B * n + B * nc * nx + B * 17 + B + 3 * B * (n + 1))
     t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem
             else "bytes", flops, nbytes)
-
-
-def write_traps_config(cfg, init_cond, measurement, output, num_iters,
-                       checkpoint_freq):
-    """The traps config: the flagship geometry (write-example --fast:
-    staub MAPI, 6 TRPL curves, nx=128, 501 points over 2000 ns, sdirk hmax
-    48 with chord blocks of 4, 8 chains at T = 1..128, hard bounds) under
-    the shallow-trap model, with the 13 staub parameters plus kC, Nt and
-    tauE (model units, priors truth x 1e-3 .. 1e3), n0, eps and Tm frozen,
-    trial move 0.003, the walk started from guesses +-0.3 dex off the
-    truth. The measurement file is synthesized by the float64 LSODA
-    oracle at the truth when it is missing. Written with the port's
-    generate_config_script_file."""
-    import numpy as np
-
-    from metrotrpl_tpu_torch.cli import synthesize_measurements
-    from metrotrpl_tpu_torch.config import generate_config_script_file
-    from metrotrpl_tpu_torch.workloads import (
-        STAUB_NAMES,
-        STAUB_PRIOR,
-        STAUB_TRUE,
-        STAUB_UC,
-        TRAPS_TRUE,
-    )
-
-    names = list(STAUB_NAMES) + list(TRAPS_TRUE)
-    truth = {**STAUB_TRUE, **TRAPS_TRUE}
-    sim = {"lengths": [311, 2000, 311, 2000, 311, 2000], "nx": [128] * 6,
-           "meas_types": ["TRPL"] * 6, "num_meas": 6}
-    active = {n: (0 if n in ("n0", "eps", "Tm") else 1) for n in names}
-    guess = dict(truth)
-    rng = np.random.default_rng(42)
-    for n in names:
-        if active[n]:
-            guess[n] *= 10.0 ** rng.uniform(-0.3, 0.3)
-    param_info = {
-        "names": names,
-        "unit_conversions": {**STAUB_UC, "Tm": 1},
-        "do_log": {n: 1 for n in names},
-        "active": active,
-        "init_guess": guess,
-        "prior_dist": {**STAUB_PRIOR, **{n: (v * 1e-3, v * 1e3)
-                                         for n, v in TRAPS_TRUE.items()}},
-        "trial_move": {n: 0.003 for n in names},
-    }
-    mcmc = {
-        "init_cond_path": str(init_cond), "measurement_path": str(measurement),
-        "output_path": str(output), "ini_mode": "fluence",
-        "num_iters": num_iters, "solver": ("sdirk",), "hmax": 48.0,
-        "refactor_every": 4, "model": "traps", "model_uncertainty": 1,
-        "log_y": 1, "scale_factor": None, "irf_convolution": None,
-        "parallel_tempering": [1., 2., 4., 8., 16., 32., 64., 128.],
-        "temper_freq": 10, "hard_bounds": 1, "force_min_y": 0,
-        "checkpoint_freq": checkpoint_freq, "load_checkpoint": None,
-    }
-    generate_config_script_file(str(cfg), sim, param_info,
-                                {"time_cutoff": [0, 2000],
-                                 "select_obs_sets": None}, mcmc)
-    if not Path(measurement).exists():
-        uc = param_info["unit_conversions"]
-        synthesize_measurements(str(measurement), str(init_cond),
-                                sim["lengths"], sim["nx"],
-                                {k: v * uc.get(k, 1) for k, v in
-                                 truth.items()}, model="traps")
 
 
 def main():
@@ -203,6 +118,7 @@ def main():
 
     from metrotrpl_tpu_torch.cli import _load_common
     from metrotrpl_tpu_torch.cli import main as cli
+    from metrotrpl_tpu_torch.cli import write_example_config
     from metrotrpl_tpu_torch.inference.likelihood import (
         ESCALATE_MU_MODEL,
         expand_states,
@@ -236,30 +152,26 @@ def main():
                 or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # the flagship config: write-example --fast (data synthesized by the
-    # float64 LSODA oracle at the staub truth), checkpoint every 100; the
-    # traps config beside it
+    # the flagship config as `write-example --fast` writes it (data
+    # synthesized by the float64 LSODA oracle at the staub truth),
+    # checkpoint every 100; the traps config beside it, from the same
+    # builder
     work = REPO / "chip_smoke_out"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     fluences = REPO / "Inputs" / "staub_MAPI_threepower_twothick_fluences.csv"
-    cfg = work / "flagship.txt"
-    t0 = time.perf_counter()
-    cli(["write-example", str(cfg), "--fast", "--num-iters", str(N_ITERS),
-         "--init-cond", str(fluences),
-         "--measurement", str(work / "staub_nonoise.csv"),
-         "--output", str(work / "run")])
-    text = cfg.read_text()
-    if "Checkpoint freq: 1000" not in text:
-        raise RuntimeError("unexpected write-example config layout")
-    cfg.write_text(text.replace("Checkpoint freq: 1000",
-                                "Checkpoint freq: 100"))
-    print(f"write-example: {time.perf_counter() - t0:.1f} s")
-    cfg_traps = work / "traps.txt"
-    t0 = time.perf_counter()
-    write_traps_config(cfg_traps, fluences, work / "staub_traps_nonoise.csv",
-                       work / "run_traps", N_ITERS_TRAPS, 50)
-    print(f"traps config and oracle data: {time.perf_counter() - t0:.1f} s")
+    cfg, cfg_traps = work / "flagship.txt", work / "traps.txt"
+    for path, model, n_iters, ckpt, data, out in (
+            (cfg, "std", N_ITERS, 100, "staub_nonoise.csv", "run"),
+            (cfg_traps, "traps", N_ITERS_TRAPS, 50,
+             "staub_traps_nonoise.csv", "run_traps")):
+        t0 = time.perf_counter()
+        write_example_config(str(path), model=model, fast=True,
+                             num_iters=n_iters, init_cond=str(fluences),
+                             measurement=str(work / data),
+                             output=str(work / out), checkpoint_freq=ckpt)
+        print(f"{model} config and oracle data: "
+              f"{time.perf_counter() - t0:.1f} s")
 
     def load_plan(path, model):
         sim_info, param_info, _f, mcmc, iniPar, e_data = _load_common(
@@ -345,13 +257,12 @@ def main():
                                    f"{limit}")
             ms = cuda_ms(run_k, 20)
             plain_ms = cuda_ms(run_p, 1)
-            nc = args[1].shape[1]
             bound_ms, bound_by, flops, nbytes = solve_bound(
-                nc, dtype, 48, 128, fp_x)
+                dtype, 48, 128, fp_x)
             results[label] = dict(
                 max_abs_err=float(dlog), max_rel_err=float(rel), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, flops=flops, bytes=nbytes,
+                library_ms=None,
                 tolerance=(f"{'|d log10 obs|' if dlabel == 'f32' else 'rel'}"
                            f" <= {limit:g} on rows under resid {resid_tol}; "
                            "the same rows over it"),

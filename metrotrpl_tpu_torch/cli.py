@@ -7,7 +7,8 @@
 ``config`` package and writes ``CPU{jobid}-final.pik`` into the config's
 output path; ``write-example`` writes the staub-MAPI example config, as
 ``metrotrpl_tpu.cli write-example`` does, and synthesizes its data with
-the port's float64 LSODA oracle.
+the port's float64 LSODA oracle. :func:`write_example_config` also writes
+the same example under the shallow-trap model.
 """
 
 import argparse
@@ -102,13 +103,22 @@ def synthesize_measurements(mpath, ipath, lengths, nx, params, model="std",
     np.savetxt(mpath, np.concatenate(rows), delimiter=",")
 
 
-def cmd_write_example(args):
-    """Generate the staub-MAPI example config (reference
-    MCMC_script_writer.py:46-156 settings); the settings of
-    ``metrotrpl_tpu.cli.cmd_write_example``."""
-    from metrotrpl_tpu_torch.config import generate_config_script_file
+def write_example_config(out, model="std", fast=False, num_iters=100,
+                         init_cond=None, measurement=None, output=None,
+                         checkpoint_freq=1000, verbose=False):
+    """Write the staub-MAPI example config to ``out`` (reference
+    MCMC_script_writer.py:46-156 settings) and synthesize its data with
+    the float64 LSODA oracle where the files are missing.
 
-    args.out = _resolve_out(args)
+    ``model="std"`` writes the config of
+    ``metrotrpl_tpu.cli.cmd_write_example``; ``model="traps"`` the same
+    geometry and solver under the shallow-trap model, with kC, Nt and
+    tauE added at their truth in model units (priors truth x 1e-3 ..
+    1e3). ``fast`` selects the sdirk fast mode (hmax 48, chord blocks of
+    4) instead of the reference's solveivp."""
+    from metrotrpl_tpu_torch.config import generate_config_script_file
+    from metrotrpl_tpu_torch.workloads import TRAPS_TRUE
+
     names = ["n0", "p0", "mu_n", "mu_p", "ks", "Cn", "Cp", "Sf", "Sb",
              "tauN", "tauP", "eps", "Tm"]
     simPar = {"lengths": [311, 2000, 311, 2000, 311, 2000],
@@ -133,6 +143,16 @@ def cmd_write_example(args):
                        "Tm": (0, np.inf)},
         "trial_move": {n: 0.003 for n in names},
     }
+    if model == "traps":
+        for n, v in TRAPS_TRUE.items():
+            names.append(n)
+            param_info["do_log"][n] = 1
+            param_info["active"][n] = 1
+            param_info["init_guess"][n] = v
+            param_info["prior_dist"][n] = (v * 1e-3, v * 1e3)
+            param_info["trial_move"][n] = 0.003
+    elif model != "std":
+        raise ValueError(f"no example config for model {model!r}")
     # data is synthesized at the TRUE parameters below; the walk starts
     # from randomized guesses (reference MCMC_script_writer.py:120-122)
     true_guess = dict(param_info["init_guess"])
@@ -143,18 +163,18 @@ def cmd_write_example(args):
 
     meas_fields = {"time_cutoff": [0, 2000], "select_obs_sets": None}
     MCMC_fields = {
-        "init_cond_path": args.init_cond or os.path.join(
+        "init_cond_path": init_cond or os.path.join(
             "Inputs", "staub_MAPI_threepower_twothick_fluences.csv"),
-        "measurement_path": args.measurement or os.path.join(
+        "measurement_path": measurement or os.path.join(
             "Inputs", "staub_MAPI_threepower_twothick_nonoise.csv"),
-        "output_path": args.output or os.path.join("bay_outputs", "run0"),
+        "output_path": output or os.path.join("bay_outputs", "run0"),
         "ini_mode": "fluence",
-        "num_iters": args.num_iters,
-        # --fast: the fast integration mode at the hmax validated for this
+        "num_iters": num_iters,
+        # fast: the fast integration mode at the hmax validated for this
         # workload; the default keeps the reference writer's solver choice
         **({"solver": ("sdirk",), "hmax": 48.0, "refactor_every": 4}
-           if getattr(args, "fast", False) else {"solver": ("solveivp",)}),
-        "model": "std",
+           if fast else {"solver": ("solveivp",)}),
+        "model": model,
         "model_uncertainty": 1,
         "log_y": 1,
         "scale_factor": None,
@@ -163,12 +183,12 @@ def cmd_write_example(args):
         "temper_freq": 10,
         "hard_bounds": 1,
         "force_min_y": 0,
-        "checkpoint_freq": 1000,
+        "checkpoint_freq": checkpoint_freq,
         "load_checkpoint": None,
     }
-    generate_config_script_file(args.out, simPar, param_info, meas_fields,
-                                MCMC_fields, verbose=True)
-    print(f"Wrote {args.out}")
+    generate_config_script_file(out, simPar, param_info, meas_fields,
+                                MCMC_fields, verbose=verbose)
+    print(f"Wrote {out}")
 
     # Turnkey: synthesize the measurement data with the float64 LSODA
     # oracle at the (pre-randomization) true parameters if it's missing
@@ -186,8 +206,18 @@ def cmd_write_example(args):
         uc = param_info["unit_conversions"]
         pm = {k: v * uc.get(k, 1) for k, v in true_guess.items()}
         synthesize_measurements(mpath, ipath, simPar["lengths"],
-                                simPar["nx"], pm)
+                                simPar["nx"], pm, model=model)
         print(f"Wrote synthetic measurement data: {mpath}")
+    return out
+
+
+def cmd_write_example(args):
+    """Generate the staub-MAPI example config (std model); the settings
+    of ``metrotrpl_tpu.cli.cmd_write_example``."""
+    write_example_config(_resolve_out(args), fast=args.fast,
+                         num_iters=args.num_iters, init_cond=args.init_cond,
+                         measurement=args.measurement, output=args.output,
+                         verbose=True)
 
 
 def main(argv=None):

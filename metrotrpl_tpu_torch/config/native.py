@@ -5,10 +5,10 @@ supported by :mod:`metrotrpl_tpu_torch.config.script_io`; this module adds a
 modern, self-describing TOML alternative mapping onto the SAME parsed
 dicts and passing through the SAME validation and derived-parameter
 pipeline (``finalize_config``), so the two formats are interchangeable
-everywhere a config path is accepted (``cli mcmc/dense/mle`` dispatch on
-the ``.toml`` extension).
+everywhere a config path is accepted (``cli mcmc`` dispatches on the
+``.toml`` extension).
 
-Schema (see ``write_config_toml`` for a generated example):
+Schema:
 
     # mu_constraint = [20.0, 3.0]   # optional ambipolar-mobility
     #                               # constraint [center, width]; must
@@ -148,89 +148,3 @@ def parse_config_toml(path):
     MCMC_fields = mc
 
     return grid, param_info, meas_flags, MCMC_fields
-
-
-def _toml_scalar(v):
-    if isinstance(v, bool):
-        return "true" if v else "false"
-    if isinstance(v, (int, np.integer)):
-        return str(int(v))
-    if isinstance(v, (float, np.floating)):
-        x = float(v)
-        if np.isinf(x):
-            return "inf" if x > 0 else "-inf"
-        return repr(x)
-    if isinstance(v, str):
-        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
-    raise TypeError(f"unsupported TOML scalar: {v!r}")
-
-
-def _toml_value(v):
-    if isinstance(v, dict):
-        items = ", ".join(f"{k} = {_toml_value(x)}" for k, x in v.items()
-                          if x is not None)
-        return "{ " + items + " }"
-    if isinstance(v, (list, tuple, np.ndarray)):
-        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
-    return _toml_scalar(v)
-
-
-def write_config_toml(path, grid, param_info, meas_flags, MCMC_fields):
-    """Write the native TOML format from the standard config dicts
-    (accepts either pre- or post-``finalize_config`` dicts; synthetic
-    ``_s*/_f*/_a*`` params are skipped — they are re-derived on read)."""
-    lines = ["# metrotrpl_tpu native config (read_config_toml)", ""]
-    # Top-level keys must precede the first [table] or tomllib folds them
-    # into that table.
-    if param_info.get("do_mu_constraint") is not None:
-        lines += [f"mu_constraint = "
-                  f"{_toml_value(list(param_info['do_mu_constraint']))}", ""]
-    lines += ["[grid]",
-              f"lengths = {_toml_value([float(x) for x in grid['lengths']])}",
-              f"nx = {_toml_value([int(x) for x in grid['nx']])}",
-              f"meas_types = {_toml_value(list(grid['meas_types']))}", ""]
-
-    for n in param_info["names"]:
-        if n.startswith(("_s", "_f", "_a")):
-            continue  # synthetic, re-derived from the fittable specs
-        lines += [f"[params.{n}]"]
-        uc = param_info.get("unit_conversions", {}).get(n, 1)
-        if uc != 1:
-            lines.append(f"unit_conversion = {_toml_scalar(float(uc))}")
-        lines += [
-            f"do_log = {_toml_scalar(bool(param_info['do_log'][n]))}",
-            f"active = {_toml_scalar(bool(param_info['active'][n]))}",
-            f"guess = {_toml_scalar(float(param_info['init_guess'][n]))}",
-            f"prior = {_toml_value(param_info['prior_dist'][n])}",
-            f"trial_move = "
-            f"{_toml_scalar(float(param_info['trial_move'].get(n, 0.0)))}",
-            ""]
-
-    lines += ["[measurement]",
-              f"time_cutoff = {_toml_value(meas_flags['time_cutoff'])}"]
-    sel = meas_flags.get("select_obs_sets")
-    if sel is not None:
-        lines.append(f"select_obs_sets = "
-                     f"{_toml_value([int(i) for i in sel])}")
-    lines.append("")
-
-    lines.append("[mcmc]")
-    for k, v in MCMC_fields.items():
-        if k.startswith("_") or v is None:
-            continue
-        if k == "solver":
-            v = list(v)
-        elif k in _BOOL_KEYS:
-            v = bool(v)
-        elif k in _FITTABLE_KEYS:
-            v = {"trial_move": float(v[0]),
-                 "inds": [int(i) for i in v[1]],
-                 "groups": (None if v[2] is None
-                            else [list(map(int, gg)) for gg in v[2]]),
-                 "guesses": (None if v[3] is None
-                             else [float(x) for x in v[3]])}
-        lines.append(f"{k} = {_toml_value(v)}")
-    lines.append("")
-
-    with open(path, "w") as f:
-        f.write("\n".join(lines))

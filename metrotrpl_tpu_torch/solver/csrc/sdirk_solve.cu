@@ -36,15 +36,18 @@
 // NC=4 with 10 levels: 2.7 KB in double) in local memory.
 //
 // What bounds it on an H100: latency and occupancy, not bandwidth or
-// FLOPs. By its count of operations (chip_smoke.py solve_bound: 2.1 GFLOP
-// for std float on the fast plan, 9.9 GFLOP for traps double on the rung
-// plan, at B=48, nx=128) it could finish in 0.03-0.3 ms at the card's
-// non-tensor-core peak; it takes 45 to 65 times that (PERF.md). At the
-// flagship shape it launches 48 blocks (8 chains x 6 measurements) of 128
-// threads on 132 SMs, and each Newton iteration is a chain of dependent
-// shared-memory exchanges and __syncthreads. Making it fast (several
-// simulations per block, fewer barriers, factors in shared memory for
-// float) is later work.
+// FLOPs. By the operations the function needs (solve_kernel.solve_flops,
+// on the non-zero entries of the blocks: 1.3 GFLOP for std float on the
+// fast plan, 4.1 GFLOP for traps double on the rung plan, at B=48,
+// nx=128) it could finish in 0.02-0.12 ms at the card's non-tensor-core
+// peak; it takes about 70 to 150 times that (PERF.md). Its block algebra
+// is dense: about 1.6 (NC=3) to 2.4 (NC=4) times the work the blocks'
+// non-zero patterns need. At the flagship shape it launches 48 blocks (8
+// chains x 6 measurements) of 128 threads on 132 SMs, and each Newton
+// iteration is a chain of dependent shared-memory exchanges and
+// __syncthreads. Making it fast (several simulations per block, fewer
+// barriers, factors in shared memory for float, sparse block algebra) is
+// later work.
 //
 // Numerics: no fast math. The failure predicates downstream compare
 // against 4*FLT_MIN and the tail clamp against FLT_MIN, so denormals must

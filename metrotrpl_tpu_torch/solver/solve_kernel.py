@@ -10,13 +10,16 @@ For CPU tensors it runs the plain PyTorch version
 the kernel's instantiation for the model (std, C=3, or traps, C=4) and
 dtype on the current stream, or raises. ``LAUNCHES`` counts kernel
 launches per (model, dtype), so a run can show which instantiations its
-solves went through.
+solves went through. :func:`solve_flops` counts the operations a call
+needs, for the kernel's bound.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
+from metrotrpl_tpu_torch.ops.blocktridiag import n_pcr_levels
 from metrotrpl_tpu_torch.physics.models import (
     JAC_PLANES,
     N_COMP,
@@ -170,3 +173,138 @@ def _launch(params, y0, dts, dx, model, scheme_name, newton_iters,
         raise RuntimeError(f"sdirk_solve kernel launch failed: cudaError {rc}")
     LAUNCHES[(model, dtype)] += 1
     return out[0].T, out[1].T, out[2].T
+
+
+# ---- the work of one call, for the kernel's bound ----
+#
+# FLOPs (+, -, *, /; negations and comparisons not counted) that one
+# simulation needs. The block algebra (I - hg*J, the PCR factor and apply
+# levels) is counted on the non-zero entries of each block: the pattern
+# comes from the model's own Jacobian (JAC_PLANES) and is carried through
+# the PCR levels, and a cell whose partner at the level's shift lies
+# outside the grid does no work there. The per-cell arithmetic below was
+# counted from csrc/sdirk_solve.cuh and .cu, each cell's derived
+# densities once per pass; an edit of that arithmetic must update it.
+_CELL_FLOPS = {
+    # rhs: make_cell 8, edge currents 21, rhs_cell 16 (+ trap exchange 9);
+    # jac: make_cell 8, edge Jacobian 36, jac_cell 62 (+ trap entries 6);
+    # emit: make_cell 8, the TRTS term 3, the two block sums 2
+    "std": dict(rhs=45, jac=106, emit=13),
+    "traps": dict(rhs=54, jac=112, emit=13),
+}
+#: FLOPs of the kernel's closed-form block inverses: inv3 by cofactors;
+#: inv4 by the Schur complement (two inv2 of 8, six 2x2 products of 12,
+#: eight adds)
+_INV_FLOPS = {3: 42, 4: 96}
+
+
+def _mm_flops(a, b):
+    """FLOPs of the product of two blocks with non-zero patterns a and b:
+    a multiply per pair of non-zeros, one add fewer per output entry."""
+    k = a.astype(int) @ b.astype(int)
+    return int((2 * k - 1)[k > 0].sum())
+
+
+def _mm_pattern(a, b):
+    return (a.astype(int) @ b.astype(int)) > 0
+
+
+def jacobian_pattern(model):
+    """Non-zero patterns (L, D, U), boolean C x C, of one cell's Jacobian
+    blocks: the entries of JAC_PLANES[model] that are not zero at a
+    random state."""
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return 0.5 + torch.rand(*shape, generator=g, dtype=torch.float64)
+
+    p = ScaledParams(*(rnd(1, 1) for _ in ScaledParams._fields))
+    y = tuple(rnd(1, 8) for _ in range(N_COMP[model]))
+    return tuple(np.array([[bool((e != 0).any()) for e in row]
+                           for row in blk])
+                 for blk in JAC_PLANES[model](y, p))
+
+
+def pcr_patterns(model, nx):
+    """Per PCR level of an nx-cell grid: (shift, alpha, beta, L, U), the
+    non-zero patterns of the level's update operators and of the L and U
+    blocks it reads (``ops.blocktridiag.pcr_factor``'s recursion on
+    patterns; the inverse of a block is taken as full)."""
+    L, _, U = jacobian_pattern(model)
+    full = np.ones_like(L)
+    levels, s = [], 1
+    for _ in range(n_pcr_levels(nx)):
+        alpha, beta = _mm_pattern(L, full), _mm_pattern(U, full)
+        levels.append((s, alpha, beta, L, U))
+        L, U = _mm_pattern(alpha, L), _mm_pattern(beta, U)
+        s *= 2
+    return levels
+
+
+def factor_flops(model, nx):
+    """FLOPs of one PCR factorization of I - hg*J(y) over nx cells: the
+    Jacobian, the Newton matrix, and per level the block inverses,
+    alpha = -L Dinv(i-s) and beta = -U Dinv(i+s) on the cells with that
+    partner, their products with the partners' L and U, and the sums into
+    D; then the final inverse."""
+    C = N_COMP[model]
+    inv = _INV_FLOPS[C]
+    jl, jd, ju = jacobian_pattern(model)
+    full = np.ones_like(jd)
+    fl = nx * (_CELL_FLOPS[model]["jac"] + int(jl.sum() + jd.sum()
+                                               + ju.sum()) + C)
+    for s, alpha, beta, L, U in pcr_patterns(model, nx):
+        m = nx - s              # cells with a partner at -s (as many at +s)
+        m2 = max(nx - 2 * s, 0)  # cells whose next L (or U) is non-zero
+        fl += nx * inv
+        fl += m * (_mm_flops(L, full) + _mm_flops(U, full))
+        fl += m * (_mm_flops(alpha, U) + int(_mm_pattern(alpha, U).sum())
+                   + _mm_flops(beta, L) + int(_mm_pattern(beta, L).sum()))
+        fl += m2 * (_mm_flops(alpha, L) + _mm_flops(beta, U))
+    return fl + nx * inv
+
+
+def apply_flops(model, nx):
+    """FLOPs of one PCR apply over nx cells: per level the two mat-vecs
+    with alpha and beta on the cells with a partner and their sums into
+    b; then the final mat-vec with the full D^-1."""
+    C = N_COMP[model]
+    fl = 0
+    for s, alpha, beta, _, _ in pcr_patterns(model, nx):
+        for a in (alpha, beta):
+            r = a.sum(axis=1)
+            fl += (nx - s) * int((2 * r - 1)[r > 0].sum() + (r > 0).sum())
+    return fl + nx * C * (2 * C - 1)
+
+
+def solve_flops(model, nx, n_steps, scheme_name="sdirk3", newton_iters=2,
+                refactor_every=1, n_ramp=None, ramp_block=1,
+                newton_plateau=None):
+    """FLOPs of one simulation through :func:`integrate_observables_cuda`
+    with these arguments: every factorization of the plan's chord phases,
+    every Newton iteration (RHS, residual, apply, damped update), the
+    stage bookkeeping and the observables at every knot."""
+    C = N_COMP[model]
+    cell = _CELL_FLOPS[model]
+    A = SDIRK_SCHEMES[scheme_name].A
+    ramp, R, Fr, ni_p = _normalize_chord(n_steps, refactor_every, n_ramp,
+                                         ramp_block, newton_iters,
+                                         newton_plateau)
+    n_phase1 = n_steps if ramp is None else ramp
+    fac, app = factor_flops(model, nx), apply_flops(model, nx)
+    n_st = A.shape[0]
+    read_later = [bool((A[st + 1:, st] != 0).any()) for st in range(n_st)]
+    fl = nx * cell["emit"]
+    for steps, block, ni in ((n_phase1, R, newton_iters),
+                             (n_steps - n_phase1, Fr, ni_p)):
+        step = nx * cell["emit"]
+        for st in range(n_st):
+            step += nx * 2 * C * int((A[st, :st] != 0).sum())   # stage sum
+            if A[st, st] == 0:                # explicit first stage
+                step += nx * cell["rhs"]
+                continue
+            # RHS, G = Y - hg*f - acc, apply, d = scale*d, Y -= d
+            step += ni * (nx * (cell["rhs"] + 5 * C) + app)
+            step += nx * 2 * C * read_later[st]    # f = (Y - acc) / hg
+        fl += steps * step + -(-steps // block) * fac
+    return fl

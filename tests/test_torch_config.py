@@ -68,13 +68,13 @@ def _stand_in_measurements(path, n=6):
 
 def test_config_dicts_equal_jax_on_flagship_and_traps_configs(tmp_path):
     """The flagship config as the port's and the JAX package's
-    `write-example --fast` write it, and the traps config chip_smoke.py
-    writes with the port's generate_config_script_file: the port's
-    read_config gives the JAX reader's four dicts on each file, and the
-    two write-example files read the same."""
-    import chip_smoke
+    `write-example --fast` write it, and the traps config the port's
+    write_example_config writes: the port's read_config gives the JAX
+    reader's four dicts on each file, and the two write-example files
+    read the same."""
     from metrotrpl_tpu.cli import main as jcli
     from metrotrpl_tpu_torch.cli import main as tcli
+    from metrotrpl_tpu_torch.cli import write_example_config
 
     meas = str(tmp_path / "meas.csv")
     _stand_in_measurements(meas)
@@ -82,8 +82,10 @@ def test_config_dicts_equal_jax_on_flagship_and_traps_configs(tmp_path):
               "--output", str(tmp_path / "out")]
     tcli(["write-example", str(tmp_path / "t.txt"), *common])
     jcli(["write-example", str(tmp_path / "j.txt"), *common])
-    chip_smoke.write_traps_config(tmp_path / "traps.txt", FLUENCES, meas,
-                                  tmp_path / "out_traps", 100, 50)
+    write_example_config(str(tmp_path / "traps.txt"), model="traps",
+                         fast=True, init_cond=FLUENCES, measurement=meas,
+                         output=str(tmp_path / "out_traps"),
+                         checkpoint_freq=50)
     for name in ("t.txt", "j.txt", "traps.txt"):
         path = str(tmp_path / name)
         assert_plans_equal(tcfg.read_config(path), jcfg.read_config(path),

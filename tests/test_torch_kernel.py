@@ -293,3 +293,114 @@ def test_kernel_traps_cell_math_matches_plain_version_on_cpu(tmp_path):
     got, want = _cell_math_vs_plain(tmp_path, "traps")
     for col in range(want.shape[1]):
         assert _plane_rel(got[:, col], want[:, col]) < 1e-13, col
+
+
+def _newton_blocks(model, nx, hg=0.7):
+    """Blocks (L, D, U) of I - hg*J at a random state of ``model`` (as the
+    per-cell harness makes it), as (C, C, nx) float64 arrays."""
+    from metrotrpl_tpu_torch.physics import models as tm
+
+    C = tm.N_COMP[model]
+    p, y0, _, _ = _kernel_inputs(1, nx, 2, torch.float64, "cpu", seed=3,
+                                 model=model)
+    rng = np.random.default_rng(4)
+    y = y0[0].numpy().copy()
+    slot = {"std": (1, 2), "traps": (2, 3)}[model]
+    y[slot[0]] = rng.uniform(-1e-3, 1e-3, nx)
+    y[slot[1]] = rng.uniform(-1e-2, 1e-2, nx)
+    if model == "traps":
+        y[1] = rng.uniform(0.0, 2.0, nx) * p.nt_s.item()
+    yt = tuple(torch.as_tensor(y[c])[None] for c in range(C))
+    JL, JD, JU = (np.array([[e[0].numpy() for e in row] for row in B])
+                  for B in tm.JAC_PLANES[model](yt, p))
+    return -hg * JL, np.eye(C)[:, :, None] - hg * JD, -hg * JU, JL, JD, JU
+
+
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_pcr_patterns_match_plain_factorization(model):
+    """The non-zero patterns solve_flops counts on (each PCR level's alpha
+    and beta) are those of the plain version's pcr_factor at a random
+    state: no block is counted wider or narrower than the data is."""
+    from metrotrpl_tpu_torch.ops.blocktridiag import pcr_factor
+
+    nx = 32
+    L, D, U = (tuple(tuple(torch.as_tensor(row[b]) for b in range(len(row)))
+                     for row in B)
+               for B in _newton_blocks(model, nx)[:3])
+    alphas, betas, _ = pcr_factor(L, D, U)
+    levels = sk.pcr_patterns(model, nx)
+    assert len(levels) == len(alphas) == 5
+    for (s, alpha, beta, _, _), a_k, b_k in zip(levels, alphas, betas):
+        for want, got in ((alpha, a_k), (beta, b_k)):
+            nz = np.array([[bool((e != 0).any()) for e in row]
+                           for row in got])
+            np.testing.assert_array_equal(want, nz, err_msg=f"shift {s}")
+    if model == "traps":          # trapping is cell-local: row T is zero
+        for op in (*alphas, *betas):
+            assert not any(e.any() for e in op[1])
+
+
+def _factor_and_apply_flops_on_data(model, nx):
+    """FLOPs of one PCR factorization (with the Jacobian and I - hg*J) and
+    one apply, counted cell by cell on the entries that are non-zero in
+    the data: the least work, without the pattern's boundary excess."""
+    from metrotrpl_tpu_torch.ops.blocktridiag import n_pcr_levels
+
+    def mm(A, B):
+        k = ((A[:, :, None, :] != 0) & (B[None, :, :, :] != 0)).sum(1)
+        return int((2 * k - 1)[k > 0].sum()), np.einsum("ikn,kjn->ijn", A, B)
+
+    def shift(A, s):          # out[..., i] = A[..., i - s], zero-padded
+        out = np.zeros_like(A)
+        if s > 0:
+            out[..., s:] = A[..., :-s]
+        else:
+            out[..., :s] = A[..., -s:]
+        return out
+
+    L, D, U, JL, JD, JU = _newton_blocks(model, nx)
+    C = D.shape[0]
+    inv = sk._INV_FLOPS[C]
+    fac = nx * (sk._CELL_FLOPS[model]["jac"] + C) + int(
+        (JL != 0).sum() + (JD != 0).sum() + (JU != 0).sum())
+    app, s = nx * C * (2 * C - 1), 1
+    for _ in range(n_pcr_levels(nx)):
+        Dinv = np.moveaxis(np.linalg.inv(np.moveaxis(D, -1, 0)), 0, -1)
+        f1, alpha = mm(L, shift(Dinv, s))
+        f2, beta = mm(U, shift(Dinv, -s))
+        alpha, beta = -alpha, -beta
+        f3, L_next = mm(alpha, shift(L, s))
+        f4, t = mm(alpha, shift(U, s))
+        f5, u = mm(beta, shift(L, -s))
+        f6, U_next = mm(beta, shift(U, -s))
+        fac += nx * inv + f1 + f2 + f3 + f4 + f5 + f6 + int(
+            (t != 0).sum() + (u != 0).sum())
+        for a in (alpha, beta):
+            r = (a != 0).sum(1)
+            app += int((2 * r - 1)[r > 0].sum() + (r > 0).sum())
+        D, L, U = D + (t + u), L_next, U_next
+        s *= 2
+    return fac + nx * inv, app
+
+
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_solve_flops_counts_the_work_on_the_data(model):
+    """factor_flops and apply_flops (the pattern count behind the kernel's
+    bound) against a count made cell by cell on the data: never below it,
+    and above it by at most 2 % at nx=32 (boundary cells whose blocks hold
+    extra zeros)."""
+    fac, app = _factor_and_apply_flops_on_data(model, 32)
+    assert fac <= sk.factor_flops(model, 32) <= 1.02 * fac
+    assert app <= sk.apply_flops(model, 32) <= 1.02 * app
+
+
+def test_solve_flops_counts_one_factorization_per_chord_block():
+    """A chord plan saves exactly the factorizations it skips: 40 steps
+    chord-free factor 40 times; a ramp of 20 steps in blocks of 2 and a
+    plateau in blocks of 4 factor 10 + 5 times; the Newton work is the
+    same."""
+    free = sk.solve_flops("traps", 32, 40, newton_iters=2)
+    chord = sk.solve_flops("traps", 32, 40, newton_iters=2, n_ramp=20,
+                           ramp_block=2, refactor_every=4)
+    assert free - chord == (40 - 15) * sk.factor_flops("traps", 32)
+    assert sk.solve_flops("std", 32, 40) < free

@@ -83,7 +83,7 @@ def test_metro_resume_repeats_uninterrupted_walk(tmp_path):
 def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
     """With jax and the JAX package unimportable, every port module and
     chip_smoke.py import, write-example writes the flagship config (with
-    stand-in data), chip_smoke.py writes the traps config, the port reads
+    stand-in data), write_example_config the traps config, the port reads
     both and builds their likelihood and move plans, and the evaluation
     tensors are made on the CPU."""
     script = textwrap.dedent(f"""
@@ -100,7 +100,7 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         assert "metrotrpl_tpu_torch.solver.solve_kernel" in names
         assert "metrotrpl_tpu_torch.config.validate" in names
         import chip_smoke
-        from metrotrpl_tpu_torch.cli import main
+        from metrotrpl_tpu_torch.cli import main, write_example_config
         d = {str(tmp_path)!r}
         t = np.linspace(0, 2000, 501)
         rows = [np.stack([t, 1e17 * np.exp(-t / 400), 1e15 + 0 * t], 1)
@@ -110,8 +110,10 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         main(["write-example", d + "/cfg.txt", "--fast", "--init-cond",
               flu, "--measurement", d + "/meas.csv", "--output",
               d + "/out"])
-        chip_smoke.write_traps_config(d + "/traps.txt", flu,
-                                      d + "/meas.csv", d + "/out_t", 10, 5)
+        write_example_config(d + "/traps.txt", model="traps", fast=True,
+                             num_iters=10, init_cond=flu,
+                             measurement=d + "/meas.csv",
+                             output=d + "/out_t", checkpoint_freq=5)
         from metrotrpl_tpu_torch.config import (
             get_data, get_initpoints, read_config)
         from metrotrpl_tpu_torch.inference.likelihood import (
