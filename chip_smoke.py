@@ -14,7 +14,9 @@ Phases, each of which raises on failure:
    over the Newton thresholds (0.5 and the 0.97*cap pin) must be the same
    rows, and on the others |d log10 observable| <= 1e-4. float64 on the
    escalation-rung plan (hmax 16, chord-free): relative error <= 1e-9.
-   CUDA-event times of both.
+   CUDA-event times of both, and of the float64 kernel at B=9 (the
+   rung's rows per iteration in a profiled flagship walk), on a line of
+   its own.
 3. The 8 high-mobility ridge states (scripts/.probe_r14_ridge_states.npz)
    through the port's eval_logll on the flagship plan in a float32 walk:
    the float64 rung must launch and every logll_T must be finite.
@@ -28,7 +30,7 @@ Phases, each of which raises on failure:
    traps config (the same builder's flagship geometry under the
    shallow-trap model, data synthesized by the float64 LSODA oracle at
    the traps truth): float32 on the fast plan, float64 on the rung plan,
-   same tolerances.
+   same tolerances and times.
 6. The traps ladder: 8 states with mu_n just above the escalation trigger
    (40 cm^2/Vs) through eval_logll in a float32 walk: the float64 traps
    kernel must launch and every logll_T must be finite.
@@ -257,12 +259,22 @@ def main():
                                    f"{limit}")
             ms = cuda_ms(run_k, 20)
             plain_ms = cuda_ms(run_p, 1)
+            ms_b9 = None
+            if dlabel == "f64":
+                # the rung's rows per iteration in a profiled flagship walk
+                p9, y9, dt9, dx9 = args
+                args9 = (type(p9)(*(a[:9] for a in p9)), y9[:9], dt9[:, :9],
+                         dx9[:9])
+                ms_b9 = cuda_ms(
+                    lambda: sk.integrate_observables_cuda(*args9, **kw), 20)
+                print(f"phase {phase} {label}: B=9 nx=128 n_steps="
+                      f"{fp_x.n_steps}: kernel {ms_b9:.3f} ms on {card}")
             bound_ms, bound_by, flops, nbytes = solve_bound(
                 dtype, 48, 128, fp_x)
             results[label] = dict(
                 max_abs_err=float(dlog), max_rel_err=float(rel), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None,
+                library_ms=None, ms_b9=ms_b9,
                 tolerance=(f"{'|d log10 obs|' if dlabel == 'f32' else 'rel'}"
                            f" <= {limit:g} on rows under resid {resid_tol}; "
                            "the same rows over it"),

@@ -13,7 +13,10 @@ keeps every product and sum rounded on its own, as the plain PyTorch
 version rounds them: the float32 chord solve at nx=128 amplifies any
 rounding difference, and only without contraction (and with each edge
 current computed once, csrc/sdirk_solve.cu) did the float32 kernel flag
-the same rows as the plain version on the card (PERF.md).
+the same rows as the plain version on the card (PERF.md). The double
+instantiations fuse their block algebra's multiply-adds explicitly
+(``fma`` in ``madd``, csrc/sdirk_solve.cuh), which the flag leaves as
+written.
 """
 
 import ctypes

@@ -20,34 +20,41 @@
 // escalation rung) and on the model's component count NC (3: std, 4:
 // traps); four C entry points instantiate the four combinations.
 //
-// Design: one thread per cell (blockDim = nx rounded up to a warp, ragged
-// threads masked), the cell's state and its per-level PCR alpha/beta
-// factors in registers / local memory; only what neighbours read crosses
-// shared memory: the state for each RHS/Jacobian pass, the (Dinv, L, U)
-// blocks at shift +-s in each PCR factor level, the right-hand side at
-// +-s in each PCR apply level. One buffer of 3*NC*NC*nx scalars serves
-// all three (27*nx at NC=3: about 27 KB at nx=128 in double; 48*nx at
-// NC=4: 48 KB, above the 48 KB static limit, so the launch opts in to
-// more dynamic shared memory). The edge currents and edge Jacobian planes
-// sit past the NC state planes, at NC*nx. Block reductions (the damping
-// max, the residual max, the observable sums) go through warp shuffles;
-// the max lets NaN win, as jnp.max / torch.amax do.
-// Per thread, the PCR factors are 2*levels*NC*NC + NC*NC values (336 at
-// NC=4 with 10 levels: 2.7 KB in double) in local memory.
+// Design: one thread block per simulation and one thread per block row
+// of a cell: thread t owns row r = t / W (so r is uniform across a warp)
+// of cell t % W, NC * W threads with W = nx rounded up to a warp (384 for
+// std, 512 for traps at nx = 128). Each thread computes its own row of
+// everything: the RHS, the Jacobian and Newton-matrix rows, its row of
+// each block inverse (cofactors for std, the Schur form for traps), its
+// rows of every PCR factor and apply level, and its update. The block
+// algebra runs on compile-time non-zero patterns (Pattern<NC> in the
+// header, which the tests hold equal to solve_kernel.pcr_patterns), and
+// double uses fused multiply-adds (madd). Rows cross shared memory only
+// where another thread reads them, one barrier per exchange: a Newton
+// iteration publishes the state once (each thread recomputes both edge
+// currents of its cell, bit for bit as the neighbour does), exchanges the
+// right-hand side once per apply level in two alternating plane sets,
+// once more for the row of the final Dinv, and takes its damping max
+// through per-warp slots: 10 barriers at nx = 128. A factor level
+// exchanges D (for the inverse) and then Dinv, L and U (for the partners
+// at +-s): two barriers. Up to 128 cells the per-level alpha and beta rows
+// that are not zero live in shared memory (7 levels at nx = 128: 105 of
+// 126 values per cell for std, 140 of 224 for traps; 205 KiB for traps in
+// double, under the 227 KiB opt-in). Past 128 cells a thread owns two
+// cells (up to 256) or up to eight, and keeps their factors in local
+// memory: 8 levels of factors for 256 cells no longer fit in shared
+// memory in double.
 //
-// What bounds it on an H100: latency and occupancy, not bandwidth or
-// FLOPs. By the operations the function needs (solve_kernel.solve_flops,
-// on the non-zero entries of the blocks: 1.3 GFLOP for std float on the
-// fast plan, 4.1 GFLOP for traps double on the rung plan, at B=48,
-// nx=128) it could finish in 0.02-0.12 ms at the card's non-tensor-core
-// peak; it takes about 70 to 150 times that (PERF.md). Its block algebra
-// is dense: about 1.6 (NC=3) to 2.4 (NC=4) times the work the blocks'
-// non-zero patterns need. At the flagship shape it launches 48 blocks (8
-// chains x 6 measurements) of 128 threads on 132 SMs, and each Newton
-// iteration is a chain of dependent shared-memory exchanges and
-// __syncthreads. Making it fast (several simulations per block, fewer
-// barriers, factors in shared memory for float, sparse block algebra) is
-// later work.
+// What bounds it on an H100: latency, not bandwidth or FLOPs. By the
+// operations the function needs (solve_kernel.solve_flops: 1.3 GFLOP for
+// std float on the fast plan, 4.1 GFLOP for traps double on the rung
+// plan, at B=48, nx=128) it could finish in 0.02-0.12 ms at the card's
+// non-tensor-core peak. Each simulation is one block on one SM, and each
+// Newton iteration is a chain of dependent shared-memory exchanges, so a
+// call costs about the same for 1 row as for 48 (the float64 rung runs ~9)
+// and its time is the chain's length: barriers per step, and the serial
+// work between them. Thread-block clusters, several simulations per block
+// and tensor-core block products are later work (PERF.md).
 //
 // Numerics: no fast math. The failure predicates downstream compare
 // against 4*FLT_MIN and the tail clamp against FLT_MIN, so denormals must
@@ -77,12 +84,7 @@ struct Plan {
   int ni_plateau; // Newton iterations per stage in phase 2
 };
 
-template <typename S>
-__device__ __forceinline__ S warp_max(S v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <typename S>
 __device__ __forceinline__ S warp_sum(S v) {
@@ -91,317 +93,472 @@ __device__ __forceinline__ S warp_sum(S v) {
   return v;
 }
 
-// Block-wide NaN-propagating max; every thread gets the result.
-template <typename S>
-__device__ S block_max(S v, S* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    S w = lane < n_warps ? red[lane] : S(0);
-    w = warp_max(w);
-    if (lane == 0) red[32] = w;
-  }
-  __syncthreads();
-  const S out = red[32];
-  __syncthreads();
-  return out;
+// Block-wide reductions read the bit patterns of |v|: for non-negative
+// IEEE values the unsigned order is the numeric order, and a NaN (its sign
+// cleared) lies above +inf, so the max lets NaN win, as jnp.max /
+// torch.amax do. One redux instruction per 32 bits.
+__device__ __forceinline__ float warp_absmax(float v) {
+  return __uint_as_float(__reduce_max_sync(0xffffffffu,
+                                           __float_as_uint(fabsf(v))));
 }
 
-// Block-wide sums of two values; every thread gets both.
-template <typename S>
-__device__ void block_sum2(S a, S b, S* red, S* sa, S* sb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (lane == 0) {
-    red[warp] = a;
-    red[32 + warp] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    S wa = lane < n_warps ? red[lane] : S(0);
-    S wb = lane < n_warps ? red[32 + lane] : S(0);
-    wa = warp_sum(wa);
-    wb = warp_sum(wb);
-    if (lane == 0) {
-      red[64] = wa;
-      red[65] = wb;
-    }
-  }
-  __syncthreads();
-  *sa = red[64];
-  *sb = red[65];
-  __syncthreads();
+__device__ __forceinline__ double warp_absmax(double v) {
+  const unsigned long long u = __double_as_longlong(fabs(v));
+  const unsigned hi = __reduce_max_sync(0xffffffffu, (unsigned)(u >> 32));
+  const unsigned lo = __reduce_max_sync(
+      0xffffffffu, (unsigned)(u >> 32) == hi ? (unsigned)u : 0u);
+  return __longlong_as_double((long long)(((unsigned long long)hi << 32) |
+                                          lo));
 }
 
-// Per-thread context of one simulation of an NC-component model.
-template <typename S, int NC>
+// Per-thread context of one simulation of an NC-component model: thread t
+// owns row r = t / W of the cells i = q * W + t % W, q < cpt (CPT = 1: one
+// cell per thread, at nx <= 128; CPT = 2: two, at nx <= 256; CPT = 8: up
+// to eight, at larger nx).
+// Shared planes hold one value per cell at stride ld() (128 with one cell
+// per thread, a compile-time constant, so plane offsets are immediates).
+template <typename S, int NC, int CPT>
 struct Sim {
   using Mo = Model<NC>;
-  static constexpr int NBK = NC * NC;  // entries of one block
-  // exchange-buffer planes: the Dinv, L and U blocks of a PCR level
-  static constexpr int XCH_PLANES = 3 * NBK;
+  using Pa = Pattern<NC>;
+  static constexpr int NBK = NC * NC;
+  // factors in shared memory (one cell per thread), or thread-local
+  static constexpr bool FAC_SMEM = CPT == 1;
+  static constexpr int LD1 = 128;  // plane stride with one cell per thread
+  static constexpr int NA = popc(Pa::ALPHA), NB = popc(Pa::BETA);
+  static constexpr int FAC_PLANES = (NA + NB) * NC;  // per level
+  // planes of the Newton exchanges: the state and two apply buffers
+  static constexpr int NEWTON_PLANES = 3 * NC;
+  static constexpr int REGION = cmax(2 * NBK, NEWTON_PLANES);
+  static constexpr int RED = 128;  // two slot sets x two sums x 32 warps
+  static constexpr int LFAC = FAC_SMEM ? 1 : CPT == 2 ? 8 : MAX_LEVELS;
 
-  int i, n;
-  bool active;
-  Params<S> p;
-  S* xch;  // exchange buffer, XCH_PLANES * n scalars
-  S* red;  // reduction scratch, 66 scalars
-  int n_levels;
-  S alpha[MAX_LEVELS][NBK];
-  S beta[MAX_LEVELS][NBK];
-  S dinv[NBK];
+  // Shared memory, in scalars: xi (NBK planes: Dinv at each level, then
+  // the final Dinv), the region (L and U of a level, a plane per block
+  // entry of which only the level's non-zero pattern is written and read;
+  // or the state and the two apply buffers), xd (NBK planes: D of a level;
+  // it aliases xi in the thread-local variant, which then takes two more
+  // barriers per level), the reduction slots, the parameters, and the
+  // factors (FAC_SMEM: FAC_PLANES per level, the rows of alpha and beta
+  // that are non-zero). Every offset but the last is a compile-time
+  // constant with one cell per thread, and a row's planes lie at r * NC
+  // plus a constant, so that the addresses need few registers.
+  static constexpr int XD_PLANE = NBK + REGION;
+  static constexpr int PLANES = NBK + REGION + (FAC_SMEM ? NBK : 0);
+  static constexpr int SCRATCH = RED + N_PARAM + (N_PARAM & 1);
+  static size_t smem_scalars(int n, int n_levels) {
+    const size_t L = FAC_SMEM ? LD1 : n;
+    return PLANES * L + SCRATCH +
+           (FAC_SMEM ? (size_t)n_levels * FAC_PLANES * L : 0);
+  }
 
-  // Publish the plane state y; return this cell and the next one (the
-  // cell itself at the last cell, where the next is never read).
-  __device__ void cells(const S* y, Cell<S>* me, Cell<S>* hi) {
-    if (active)
-      for (int c = 0; c < NC; ++c) xch[c * n + i] = y[c];
+  int r, j, W, n, cpt, n_levels;
+  S* base;
+  int red_par;
+  S fa[CPT][LFAC][NC];       // thread-local alpha / beta rows
+  S fb[CPT][LFAC][NC];
+
+  __device__ int ld() const { return FAC_SMEM ? LD1 : n; }
+  // cells of this thread: a compile-time count (1 or 2) keeps the
+  // per-cell arrays in registers
+  __device__ int nq() const { return CPT == 8 ? cpt : CPT; }
+  __device__ int cell(int q) const { return q * W + j; }
+  __device__ bool act(int q) const { return q < nq() && cell(q) < n; }
+
+  __device__ void init(S* smem, int nx, int levels, int w, int cells) {
+    r = threadIdx.x / w;
+    j = threadIdx.x % w;
+    W = w;
+    n = nx;
+    cpt = cells;
+    n_levels = levels;
+    base = smem;
+    red_par = 0;
+  }
+
+  __device__ S* xi() const { return base; }
+  __device__ S* region() const { return base + NBK * ld(); }
+  __device__ S* xl() const { return region(); }
+  __device__ S* xu() const { return region() + NBK * ld(); }
+  __device__ S* xy() const { return region(); }
+  __device__ S* xb(int k) const { return region() + (NC + k * NC) * ld(); }
+  __device__ S* xd() const { return FAC_SMEM ? base + XD_PLANE * ld() : base; }
+  __device__ S* red() const { return base + PLANES * ld(); }
+  __device__ Params<S>* p() const {
+    return reinterpret_cast<Params<S>*>(red() + RED);
+  }
+  __device__ S* fst() const { return red() + SCRATCH; }
+  // Offset of this row's alpha (beta) planes in a level of the factor
+  // storage. In traps double, at the 128-register cap of 512 threads, it
+  // is computed at each use from an opaque copy of r: hoisted and held
+  // across the whole solve, such offsets spill (12 B; the copy costs ~1 %
+  // of the time, so the other instantiations go without).
+  __device__ int fac_row(bool beta) const {
+    int rr = r;
+    if constexpr (NC == 4 && sizeof(S) == 8) asm volatile("" : "+r"(rr));
+    return (beta ? NA + pidx(Pa::BETA, 0, rr) : pidx(Pa::ALPHA, 0, rr)) *
+           NC * ld();
+  }
+
+  // Block-wide NaN-winning max of |v|; every thread gets the result. Each
+  // warp writes its slot, and after one barrier every warp reduces the
+  // slots itself; the slot sets alternate between calls.
+  __device__ S block_max(S v) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    S* slot = red() + 64 * red_par;
+    red_par ^= 1;
+    v = warp_absmax(v);
+    if (lane == 0) slot[warp] = v;
     __syncthreads();
-    if (active) {
-      *me = make_cell(xch[Mo::N * n + i], xch[Mo::D * n + i],
-                      xch[Mo::E * n + i], p);
-      const int j = i < n - 1 ? i + 1 : i;
-      *hi = make_cell(xch[Mo::N * n + j], xch[Mo::D * n + j],
-                      xch[Mo::E * n + j], p);
+    return warp_absmax(lane < (int)(blockDim.x >> 5) ? slot[lane] : S(0));
+  }
+
+  // Block-wide sums of two values; every thread gets both.
+  __device__ void block_sum2(S a, S b, S* sa, S* sb) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    S* slot = red() + 64 * red_par;
+    red_par ^= 1;
+    a = warp_sum(a);
+    b = warp_sum(b);
+    if (lane == 0) {
+      slot[warp] = a;
+      slot[32 + warp] = b;
+    }
+    __syncthreads();
+    *sa = warp_sum(lane < n_warps ? slot[lane] : S(0));
+    *sb = warp_sum(lane < n_warps ? slot[32 + lane] : S(0));
+  }
+
+  __device__ Cell<S> state_cell(int i) const {
+    return make_cell(xy()[Mo::N * ld() + i], xy()[Mo::D * ld() + i],
+                     xy()[Mo::E * ld() + i], *p());
+  }
+
+  // Publish the thread's state rows into xy (one barrier follows).
+  __device__ void publish(const S* yq) {
+    for (int q = 0; q < nq(); ++q)
+      if (act(q)) xy()[r * ld() + cell(q)] = yq[q];
+    __syncthreads();
+  }
+
+  // Row r of dy/dt of the thread's cells at the state rows yq
+  // (rhs_std_planes / rhs_traps_planes). Each thread computes the currents
+  // of both edges of its cell with right_edge_flux, as the cell on the
+  // edge's left does: the same operands in the same order, so the two
+  // cells' values of an edge agree to the bit and the divergences
+  // telescope exactly, as in the plane code. One barrier.
+  __device__ void rhs(const S* yq, S* out) {
+    publish(yq);
+    for (int q = 0; q < nq(); ++q) {
+      if (!act(q)) continue;
+      const int i = cell(q);
+      const Cell<S> me = state_cell(i);
+      S jn_l = S(0), F_l = S(0), jn_r = S(0), F_r = S(0);
+      if (r != Mo::T) {  // the traps Ntrap row has no currents
+        right_edge_flux(i, n, me, state_cell(i < n - 1 ? i + 1 : i), *p(),
+                        &jn_r, &F_r);
+        if (i > 0) {
+          right_edge_flux(i - 1, n, state_cell(i - 1), me, *p(), &jn_l,
+                          &F_l);
+        } else {  // front surface; the surface terms cancel in F
+          jn_l = surface_flux(me, p()->sf);
+        }
+      }
+      if constexpr (NC == 3)
+        out[q] = rhs_row(r, i, n, me, jn_l, F_l, jn_r, F_r, *p());
+      else
+        out[q] = rhs_row_traps(r, i, n, me, xy()[Mo::T * ld() + i], jn_l,
+                               F_l, jn_r, F_r, *p());
     }
   }
 
-  // dy/dt of this cell (rhs_std_planes / rhs_traps_planes). Each edge's
-  // currents are computed once, by the cell to its left, and read by the
-  // cell to its right through shared memory, past the NC state planes.
-  __device__ void rhs(const S* y, S* out) {
-    Cell<S> me, hi;
-    cells(y, &me, &hi);
-    S jn_r = S(0), F_r = S(0);
-    S* edge = xch + NC * n;
-    if (active) {
-      right_edge_flux(i, n, me, hi, p, &jn_r, &F_r);
-      edge[i] = jn_r;
-      edge[n + i] = F_r;
+  // The cell's full D, published in xd(), to Dinv: each row its own row
+  // (inv_row: cofactors for std, the Schur form for traps), written into
+  // xi, where the final level's Dinv stays for the Newton iterations (its
+  // first reader, apply, passes a barrier before it reads).
+  __device__ void invert() {
+    S row[CPT][NC];
+    for (int q = 0; q < nq(); ++q) {
+      if (!act(q)) continue;
+      const int i = cell(q);
+      inv_row<NC>(
+          r, [&](int k, int c) { return xd()[(k * NC + c) * ld() + i]; },
+          row[q]);
     }
+    if (!FAC_SMEM) __syncthreads();  // xd aliases xi
+    for (int q = 0; q < nq(); ++q)
+      if (act(q))
+        for (int c = 0; c < NC; ++c)
+          xi()[(r * NC + c) * ld() + cell(q)] = row[q][c];
+  }
+
+  // Publish the rows of D into xd (one barrier follows; in the
+  // thread-local variant xd aliases xi(), which the last level read).
+  __device__ void publish_d(const S (*D)[NC]) {
+    if (!FAC_SMEM) __syncthreads();
+    for (int q = 0; q < nq(); ++q)
+      if (act(q))
+        for (int c = 0; c < NC; ++c)
+          xd()[(r * NC + c) * ld() + cell(q)] = D[q][c];
     __syncthreads();
-    if (active) {
-      S jn_l, F_l;
-      if (i > 0) {
-        jn_l = edge[i - 1];
-        F_l = edge[n + i - 1];
-      } else {  // front surface; the surface terms cancel in F
-        jn_l = surface_flux(me, p.sf);
-        F_l = S(0);
+  }
+
+  // One PCR factor level at shift s: the rows of L and U published (they
+  // are read back from shared memory, so that they are not live across
+  // the inverse), Dinv of every cell, then each row's alpha and beta,
+  // stored, and its next L, D, U.
+  template <bool FIRST>
+  __device__ void level(int lev, int s, S (*L)[NC], S (*D)[NC],
+                        S (*U)[NC]) {
+    publish_d(D);
+    const int LDv = ld();
+    // this row's entries of the L / U planes (recomputed, not held)
+    auto lrow = [&](int c) { return xl() + (r * NC + c) * LDv; };
+    auto urow = [&](int c) { return xu() + (r * NC + c) * LDv; };
+    for (int q = 0; q < nq(); ++q) {
+      if (!act(q)) continue;
+      const int i = cell(q);
+      for (int c = 0; c < NC; ++c) {
+        if (pbit(Pa::LX, r, c)) lrow(c)[i] = L[q][c];
+        if (pbit(Pa::UX, r, c)) urow(c)[i] = U[q][c];
       }
-      if constexpr (NC == 3)
-        rhs_cell(i, n, me, jn_l, F_l, jn_r, F_r, p, out);
-      else
-        rhs_cell_traps(i, n, me, y[Mo::T], jn_l, F_l, jn_r, F_r, p, out);
     }
+    invert();
     __syncthreads();
+    for (int q = 0; q < nq(); ++q) {
+      if (!act(q)) continue;
+      const int i = cell(q);
+      const int im = i - s, ip = i + s;
+      const bool has_m = im >= 0, has_p = ip < n;
+      for (int c = 0; c < NC; ++c) {
+        L[q][c] = pbit(Pa::LX, r, c) ? lrow(c)[i] : S(0);
+        U[q][c] = pbit(Pa::UX, r, c) ? urow(c)[i] : S(0);
+        // D too, where xd outlives the inverse
+        if (FAC_SMEM) D[q][c] = xd()[(r * NC + c) * LDv + i];
+      }
+      // entry (k, c) of a partner's block in planes pl
+      auto blk = [LDv](const S* pl, int j) {
+        return [=](int k, int c) { return pl[(k * NC + c) * LDv + j]; };
+      };
+      S alpha[NC], beta[NC];
+      pcr_level_row<NC, FIRST>(r, L[q], D[q], U[q], has_m, has_p,
+                               blk(xi(), im), blk(xl(), im), blk(xu(), im),
+                               blk(xi(), ip), blk(xl(), ip), blk(xu(), ip),
+                               alpha, beta);
+      if constexpr (FAC_SMEM) {
+        S* f = fst() + lev * FAC_PLANES * LDv + i;
+        const int oa = fac_row(false), ob = fac_row(true);
+        for (int c = 0; c < NC; ++c) {
+          if (pbit(Pa::ALPHA, 0, r)) f[oa + c * LDv] = alpha[c];
+          if (pbit(Pa::BETA, 0, r)) f[ob + c * LDv] = beta[c];
+        }
+      } else {
+        for (int c = 0; c < NC; ++c) {
+          fa[q][lev][c] = alpha[c];
+          fb[q][lev][c] = beta[c];
+        }
+      }
+    }
   }
 
   // PCR factorization of M = I - hg*J(y) (sdirk_factors + pcr_factor).
-  __device__ void factor(const S* y, S hg) {
-    Cell<S> me, hi;
-    cells(y, &me, &hi);
-    EdgeJac<S> ek;
-    if (active) {
-      ek = own_edge_jac(i, n, me, hi, p);
-      S* e = xch + NC * n + i;
-      e[0] = ek.jn_dNk;
-      e[n] = ek.jn_dNk1;
-      e[2 * n] = ek.jn_dE;
-      e[3 * n] = ek.F_dNk;
-      e[4 * n] = ek.F_dNk1;
-      e[5 * n] = ek.F_dDk;
-      e[6 * n] = ek.F_dDk1;
-      e[7 * n] = ek.F_dE;
-    }
-    __syncthreads();
-    S L[NBK], D[NBK], U[NBK];
-    if (active) {
+  // Each thread computes the Jacobians of both edges of its cell with
+  // own_edge_jac, as the cell on the edge's left does (same operands, same
+  // bits), so the state is the only exchange before level 0.
+  __device__ void factor(const S* yq, S hg) {
+    publish(yq);
+    S L[CPT][NC], D[CPT][NC], U[CPT][NC];
+    for (int q = 0; q < nq(); ++q) {
+      if (!act(q)) continue;
+      const int i = cell(q);
+      const Cell<S> me = state_cell(i);
+      const EdgeJac<S> ek =
+          own_edge_jac(i, n, me, state_cell(i < n - 1 ? i + 1 : i), *p());
       EdgeJac<S> ep = {S(0), S(0), S(0), S(0), S(0), S(0), S(0), S(0)};
-      if (i > 0) {
-        const S* e = xch + NC * n + i - 1;
-        ep = {e[0], e[n], e[2 * n], e[3 * n], e[4 * n], e[5 * n], e[6 * n],
-              e[7 * n]};
-      }
-      S JL[NBK], JD[NBK], JU[NBK];
+      if (i > 0) ep = own_edge_jac(i - 1, n, state_cell(i - 1), me, *p());
+      S JL[NC], JD[NC], JU[NC];
       if constexpr (NC == 3)
-        jac_cell(i, n, me, ek, ep, p, JL, JD, JU);
+        jac_row(r, i, n, me, ek, ep, *p(), JL, JD, JU);
       else
-        jac_cell_traps(i, n, me, y[Mo::T], ek, ep, p, JL, JD, JU);
-      for (int e = 0; e < NBK; ++e) {
-        const bool diag = e % (NC + 1) == 0;
-        D[e] = diag ? S(1) - hg * JD[e] : -hg * JD[e];
-        L[e] = -hg * JL[e];
-        U[e] = -hg * JU[e];
+        jac_row_traps(r, i, n, me, xy()[Mo::T * ld() + i], ek, ep, *p(), JL,
+                      JD, JU);
+      for (int c = 0; c < NC; ++c) {
+        D[q][c] = c == r ? S(1) - hg * JD[c] : -hg * JD[c];
+        L[q][c] = -hg * JL[c];
+        U[q][c] = -hg * JU[c];
       }
     }
-    __syncthreads();
     int s = 1;
     for (int lev = 0; lev < n_levels; ++lev, s *= 2) {
-      S Di[NBK];
-      if (active) {
-        inv<NC>(D, Di);
-        for (int e = 0; e < NBK; ++e) {
-          xch[e * n + i] = Di[e];
-          xch[(NBK + e) * n + i] = L[e];
-          xch[(2 * NBK + e) * n + i] = U[e];
-        }
-      }
-      __syncthreads();
-      S Dm[NBK], Dp[NBK], Lm[NBK], Um[NBK], Lp[NBK], Up[NBK];
-      if (active) {
-        const bool has_m = i - s >= 0, has_p = i + s < n;
-        for (int e = 0; e < NBK; ++e) {
-          Dm[e] = has_m ? xch[e * n + i - s] : S(0);
-          Lm[e] = has_m ? xch[(NBK + e) * n + i - s] : S(0);
-          Um[e] = has_m ? xch[(2 * NBK + e) * n + i - s] : S(0);
-          Dp[e] = has_p ? xch[e * n + i + s] : S(0);
-          Lp[e] = has_p ? xch[(NBK + e) * n + i + s] : S(0);
-          Up[e] = has_p ? xch[(2 * NBK + e) * n + i + s] : S(0);
-        }
-      }
-      __syncthreads();
-      if (active) {
-        S t[NBK], u[NBK];
-        mm<NC>(L, Dm, t);
-        for (int e = 0; e < NBK; ++e) alpha[lev][e] = -t[e];
-        mm<NC>(U, Dp, t);
-        for (int e = 0; e < NBK; ++e) beta[lev][e] = -t[e];
-        mm<NC>(alpha[lev], Lm, L);
-        mm<NC>(alpha[lev], Um, t);
-        mm<NC>(beta[lev], Lp, u);
-        for (int e = 0; e < NBK; ++e) D[e] = D[e] + (t[e] + u[e]);
-        mm<NC>(beta[lev], Up, U);
-      }
+      if (lev == 0)
+        level<true>(lev, s, L, D, U);
+      else
+        level<false>(lev, s, L, D, U);
     }
-    if (active) inv<NC>(D, dinv);
+    publish_d(D);
+    invert();
   }
 
-  // x = M^-1 b with the stored factors (pcr_apply).
-  __device__ void apply(const S* b_in, S* x) {
-    S b[NC];
-    for (int c = 0; c < NC; ++c) b[c] = active ? b_in[c] : S(0);
+  // x = M^-1 b with the stored factors (pcr_apply): one barrier per
+  // level, the right-hand sides alternating between two plane sets, then
+  // one more exchange for the row of the final Dinv (in xi).
+  __device__ void apply(const S* g, S* x) {
+    S b[CPT];
+    for (int q = 0; q < nq(); ++q) b[q] = act(q) ? g[q] : S(0);
+    const int LDv = ld();
+    const int oa = FAC_SMEM ? fac_row(false) : 0;
+    const int ob = FAC_SMEM ? fac_row(true) : 0;
     int s = 1;
     for (int lev = 0; lev < n_levels; ++lev, s *= 2) {
-      if (active)
-        for (int c = 0; c < NC; ++c) xch[c * n + i] = b[c];
+      S* bb = xb(lev & 1);
+      for (int q = 0; q < nq(); ++q)
+        if (act(q)) bb[r * LDv + cell(q)] = b[q];
       __syncthreads();
-      S bm[NC], bp[NC];
-      if (active) {
-        const bool has_m = i - s >= 0, has_p = i + s < n;
-        for (int c = 0; c < NC; ++c) {
-          bm[c] = has_m ? xch[c * n + i - s] : S(0);
-          bp[c] = has_p ? xch[c * n + i + s] : S(0);
+      for (int q = 0; q < nq(); ++q) {
+        if (!act(q)) continue;
+        const int i = cell(q);
+        const int im = i - s, ip = i + s;
+        auto bm = [&](int k) { return bb[k * LDv + im]; };
+        auto bp = [&](int k) { return bb[k * LDv + ip]; };
+        if constexpr (FAC_SMEM) {
+          const S* f = fst() + lev * FAC_PLANES * LDv + i;
+          b[q] = pcr_apply_row<NC>(
+              r, b[q], im >= 0, ip < n, [&](int c) { return f[oa + c * LDv]; },
+              [&](int c) { return f[ob + c * LDv]; }, bm, bp);
+        } else {
+          b[q] = pcr_apply_row<NC>(
+              r, b[q], im >= 0, ip < n, [&](int c) { return fa[q][lev][c]; },
+              [&](int c) { return fb[q][lev][c]; }, bm, bp);
         }
       }
-      __syncthreads();
-      if (active) {
-        S lo[NC], hi[NC];
-        mv<NC>(alpha[lev], bm, lo);
-        mv<NC>(beta[lev], bp, hi);
-        for (int c = 0; c < NC; ++c) b[c] = b[c] + lo[c] + hi[c];
-      }
     }
-    if (active) mv<NC>(dinv, b, x);
+    S* bb = xb(n_levels & 1);
+    for (int q = 0; q < nq(); ++q)
+      if (act(q)) bb[r * LDv + cell(q)] = b[q];
+    __syncthreads();
+    for (int q = 0; q < nq(); ++q) {
+      if (!act(q)) continue;
+      const int i = cell(q);
+      S acc = S(0);
+      for (int k = 0; k < NC; ++k)
+        acc = madd(xi()[(r * NC + k) * LDv + i], bb[k * LDv + i], acc);
+      x[q] = acc;
+    }
   }
 
   // One step's stage sweep with the current factors (sdirk_stages).
-  // Advances y in place; returns the step's residual.
+  // Advances the state rows y in place; returns the step's residual. The
+  // stage derivatives are read through selects on constant indices, so
+  // that they stay in registers; the Butcher table is a grid constant
+  // (sc lies in the kernel's parameter space, which takes a run-time
+  // index without a local copy).
   __device__ S stages(S* y, S h, const Scheme<S>& sc, int ni) {
-    S fs[3][NC];
-    S Y[NC], acc[NC];
+    S fs[3][CPT];
+    S Y[CPT], acc[CPT];
     S resid = S(0);
     bool have_resid = false;
-    for (int c = 0; c < NC; ++c) Y[c] = y[c];
+    auto coef = [&](int a, int b) { return sc.A[a][b]; };
+    auto set_fs = [&](int st, int q, S v) {
+      if (st == 0)
+        fs[0][q] = v;
+      else if (st == 1)
+        fs[1][q] = v;
+      else
+        fs[2][q] = v;
+    };
+    for (int q = 0; q < CPT; ++q) Y[q] = y[q];
     for (int st = 0; st < sc.n_stages; ++st) {
-      for (int c = 0; c < NC; ++c) acc[c] = y[c];
-      for (int j = 0; j < st; ++j)
-        if (sc.A[st][j] != S(0))
-          for (int c = 0; c < NC; ++c)
-            acc[c] = acc[c] + (h * sc.A[st][j]) * fs[j][c];
-      if (sc.A[st][st] == S(0)) {  // explicit first stage (ESDIRK)
-        rhs(y, fs[st]);
+      for (int q = 0; q < CPT; ++q) acc[q] = y[q];
+      for (int jj = 0; jj < st; ++jj) {
+        const S a = coef(st, jj);
+        if (a != S(0))
+          for (int q = 0; q < CPT; ++q)
+            acc[q] = acc[q] + (h * a) * (jj == 0 ? fs[0][q] : fs[1][q]);
+      }
+      if (coef(st, st) == S(0)) {  // explicit first stage (ESDIRK)
+        S f[CPT];
+        rhs(y, f);
+        for (int q = 0; q < CPT; ++q) set_fs(st, q, f[q]);
         continue;
       }
-      for (int c = 0; c < NC; ++c) Y[c] = acc[c];
-      S r = S(0);
+      for (int q = 0; q < CPT; ++q) Y[q] = acc[q];
+      S rs = S(0);
       for (int it = 0; it < ni; ++it) {
-        S f[NC], G[NC], d[NC];
+        S f[CPT], G[CPT], d[CPT];
         rhs(Y, f);
-        for (int c = 0; c < NC; ++c)
-          G[c] = active ? Y[c] - h * sc.gamma * f[c] - acc[c] : S(0);
+        for (int q = 0; q < CPT; ++q)
+          G[q] = act(q) ? Y[q] - h * sc.gamma * f[q] - acc[q] : S(0);
         apply(G, d);
         // max |d| over every plane (_maxabs_update), NaN winning
         S m = S(0);
-        if (active) {
-          m = abs_(d[0]);
-          for (int c = 1; c < NC; ++c) m = nan_max(m, abs_(d[c]));
-        }
-        const S dmax = block_max(m, red);
+        for (int q = 0; q < nq(); ++q)
+          if (act(q)) m = q == 0 ? abs_(d[q]) : nan_max(m, abs_(d[q]));
+        const S dmax = block_max(m);
         // trust-region damping: scale the update so max|d| <= cap
+        // (1 without the division where max|d| <= cap: cap / cap == 1)
         const S cap = S(NEWTON_DAMP);
-        const S sc_ = nan_min(S(1), cap / nan_max(dmax, cap));
-        for (int c = 0; c < NC; ++c) {
-          d[c] = sc_ * d[c];
-          Y[c] = Y[c] - d[c];
+        const S sc_ = dmax <= cap ? S(1)
+                                  : nan_min(S(1), cap / nan_max(dmax, cap));
+        for (int q = 0; q < nq(); ++q) {
+          if (!act(q)) continue;
+          d[q] = sc_ * d[q];
+          Y[q] = Y[q] - d[q];
         }
         // max|s*d| == s*max|d| exactly (rounding is monotone, s >= 0)
-        r = sc_ * dmax;
+        rs = sc_ * dmax;
       }
-      resid = have_resid ? nan_max(resid, r) : r;
+      resid = have_resid ? nan_max(resid, rs) : rs;
       have_resid = true;
-      for (int c = 0; c < NC; ++c)
-        fs[st][c] = (Y[c] - acc[c]) / (h * sc.gamma);
+      for (int q = 0; q < CPT; ++q)
+        set_fs(st, q, (Y[q] - acc[q]) / (h * sc.gamma));
     }
-    for (int c = 0; c < NC; ++c) y[c] = Y[c];
+    for (int q = 0; q < CPT; ++q) y[q] = Y[q];
     return resid;
   }
 };
 
-template <typename S, int NC, int MAX_THREADS>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <typename S, int NC, int CPT>
+__global__ void __launch_bounds__(NC * 128)
 sdirk_solve_kernel(const S* __restrict__ dt, const S* __restrict__ y0,
                    const S* __restrict__ par, const S* __restrict__ dx,
                    S* __restrict__ pl_out, S* __restrict__ tr_out,
-                   S* __restrict__ rs_out, int nx, int n_levels,
-                   Scheme<S> sc, Plan plan) {
+                   S* __restrict__ rs_out, int nx, int n_levels, int W,
+                   int cpt, const __grid_constant__ Scheme<S> sc,
+                   const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* smem = reinterpret_cast<S*>(smem_raw);
 
   const int b = blockIdx.x;
-  Sim<S, NC> sim;
-  sim.i = threadIdx.x;
-  sim.n = nx;
-  sim.active = sim.i < nx;
-  sim.p = load_params(par + (size_t)b * N_PARAM);
-  sim.xch = smem;
-  sim.red = smem + (size_t)Sim<S, NC>::XCH_PLANES * nx;
-  sim.n_levels = n_levels;
+  Sim<S, NC, CPT> sim;
+  sim.init(reinterpret_cast<S*>(smem_raw), nx, n_levels, W, cpt);
+  if (threadIdx.x < N_PARAM)
+    reinterpret_cast<S*>(sim.p())[threadIdx.x] =
+        par[(size_t)b * N_PARAM + threadIdx.x];
+  __syncthreads();
 
   const int n_out = plan.n_steps + 1;
   const S* dt_b = dt + (size_t)b * plan.n_steps;
   const S dxb = dx[b];
-  S y[NC];
-  for (int c = 0; c < NC; ++c)
-    y[c] = sim.active ? y0[((size_t)b * NC + c) * nx + sim.i] : S(0);
+  S y[CPT];
+  for (int q = 0; q < CPT; ++q)
+    y[q] = sim.act(q) ? y0[((size_t)b * NC + sim.r) * nx + sim.cell(q)]
+                      : S(0);
 
-  // Observables of the state at knot k: each knot written on its own, so
-  // a NaN step stays in its own knot.
+  // Observables of the state at knot k, summed by row 0 over its cells:
+  // each knot written on its own, so a NaN step stays in its own knot.
   auto emit = [&](int k, S resid) {
+    sim.publish(y);
     S m = S(0), t = S(0);
-    if (sim.active) {
-      using Mo = Model<NC>;
-      const Cell<S> c = make_cell(y[Mo::N], y[Mo::D], y[Mo::E], sim.p);
-      m = c.M;
-      t = sim.p.diff_n * c.dN + sim.p.diff_p * c.dP;
-    }
+    if (sim.r == 0)
+      for (int q = 0; q < sim.nq(); ++q) {
+        if (!sim.act(q)) continue;
+        const Cell<S> c = sim.state_cell(sim.cell(q));
+        m = q == 0 ? c.M : m + c.M;
+        const S tq = sim.p()->diff_n * c.dN + sim.p()->diff_p * c.dP;
+        t = q == 0 ? tq : t + tq;
+      }
     S sm, st;
-    block_sum2(m, t, sim.red, &sm, &st);
+    sim.block_sum2(m, t, &sm, &st);
     if (threadIdx.x == 0) {
       pl_out[(size_t)b * n_out + k] = dxb * sm;
       tr_out[(size_t)b * n_out + k] = dxb * st;
@@ -430,6 +587,11 @@ sdirk_solve_kernel(const S* __restrict__ dt, const S* __restrict__ y0,
   }
 }
 
+template <typename S, int NC, int CPT>
+size_t smem_bytes(int nx, int n_levels) {
+  return Sim<S, NC, CPT>::smem_scalars(nx, n_levels) * sizeof(S);
+}
+
 template <typename S, int NC>
 int launch(const void* dt, const void* y0, const void* par, const void* dx,
            void* pl, void* tr, void* rs, int B, int nx, int n_steps,
@@ -450,9 +612,15 @@ int launch(const void* dt, const void* y0, const void* par, const void* dx,
             ni_plateau};
   int n_levels = 0;
   while ((1 << n_levels) < nx) ++n_levels;
-  const int threads = ((nx + 31) / 32) * 32;
-  const size_t smem =
-      ((size_t)Sim<S, NC>::XCH_PLANES * nx + 66) * sizeof(S);
+  // up to 128 cells: a thread per block row and cell, the factors in
+  // shared memory; beyond: two cells per thread up to 256, else up to 8,
+  // the factors thread-local
+  const int cpt = nx <= 128 ? 1 : (nx + 127) / 128;
+  const int W = ((nx + cpt - 1) / cpt + 31) / 32 * 32;
+  const int threads = NC * W;
+  const size_t smem = cpt == 1   ? smem_bytes<S, NC, 1>(nx, n_levels)
+                      : cpt == 2 ? smem_bytes<S, NC, 2>(nx, n_levels)
+                                 : smem_bytes<S, NC, 8>(nx, n_levels);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const S* a_dt = static_cast<const S*>(dt);
   const S* a_y0 = static_cast<const S*>(y0);
@@ -461,17 +629,17 @@ int launch(const void* dt, const void* y0, const void* par, const void* dx,
   S* a_pl = static_cast<S*>(pl);
   S* a_tr = static_cast<S*>(tr);
   S* a_rs = static_cast<S*>(rs);
-  // the two instantiations differ only in their register budget
-  // (__launch_bounds__), so they share one signature
-  auto kern = threads <= 256 ? sdirk_solve_kernel<S, NC, 256>
-                             : sdirk_solve_kernel<S, NC, 1024>;
+  // the variants share one signature
+  auto kern = cpt == 1   ? sdirk_solve_kernel<S, NC, 1>
+              : cpt == 2 ? sdirk_solve_kernel<S, NC, 2>
+                         : sdirk_solve_kernel<S, NC, 8>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<B, threads, smem, st>>>(a_dt, a_y0, a_par, a_dx, a_pl, a_tr, a_rs,
-                                 nx, n_levels, sc, plan);
+                                 nx, n_levels, W, cpt, sc, plan);
   return (int)cudaGetLastError();
 }
 

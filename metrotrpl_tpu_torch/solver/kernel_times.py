@@ -1,0 +1,237 @@
+#!/usr/bin/env python3
+"""CUDA-event times of the solve kernel's instantiations, for one or
+several checkouts of this repository, on the same inputs.
+
+    python3 metrotrpl_tpu_torch/solver/kernel_times.py [--turns DIR ...]
+
+Without ``--turns`` it times the checkout it lies in. With ``--turns A B``
+it times A, B, B, A (each in its own process, each building its own
+kernel library from its own sources; more directories go the same way
+out and back), so that versions of the kernel are compared on one card
+in turns. Every checkout must have the wrapper
+``metrotrpl_tpu_torch.solver.solve_kernel.integrate_observables_cuda``
+with its present arguments.
+
+The inputs are made once, from this checkout, in a temporary directory
+inside it: the flagship std config and the traps config as
+``cli.write_example_config(fast=True)`` writes them, 8 states (+-0.1 dex
+around the truth on the active parameters) x 6 measurements = 48 rows at
+nx=128, on the float32 fast plan and the float64 rung plan. Per checkout
+and instantiation it reports:
+
+- ``ms_B48``: the kernel on its plan at B=48; the float64 rung also at
+  B=9 (the rung's rows per iteration in a profiled flagship walk) and B=1;
+- ``out_sha256``: a digest of the B=48 outputs, so that the summary can
+  say whether two checkouts' kernels agree bit for bit;
+- the split of its time: the same 48 rows at a constant step (the plan's
+  median dt) with the plan's Newton iterations and no chord (``as_is``),
+  with ``newton_iters=1`` (``ni1``), and as a chord plan that refactors
+  every 5 steps (``chord5``); the three times solved for ms per
+  factorization, ms per Newton iteration and the rest (the observables
+  and the launch).
+
+Output, on stdout: one JSON line per checkout run, then a summary.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+HERE = Path(__file__).resolve()
+REPO = HERE.parents[2]
+N_REP = 20
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_inputs(work):
+    """The 48-row kernel inputs of both models on both plans, as CPU
+    tensors: {(model, dtag): (params list, y0, dts, dx, kwargs)}."""
+    import numpy as np
+    import torch
+
+    from metrotrpl_tpu_torch.cli import _load_common, write_example_config
+    from metrotrpl_tpu_torch.inference.likelihood import expand_states
+    from metrotrpl_tpu_torch.inference.metropolis import plans_from_config
+    from metrotrpl_tpu_torch.solver.forward import prepare_batch
+    from metrotrpl_tpu_torch.workloads import STAUB_TRUE, TRAPS_TRUE
+
+    work.mkdir(parents=True, exist_ok=True)
+    fluences = REPO / "Inputs" / "staub_MAPI_threepower_twothick_fluences.csv"
+    inputs = {}
+    for model, truth in (("std", STAUB_TRUE),
+                         ("traps", {**STAUB_TRUE, **TRAPS_TRUE})):
+        cfg = work / f"{model}.txt"
+        write_example_config(str(cfg), model=model, fast=True, num_iters=10,
+                             init_cond=str(fluences),
+                             measurement=str(work / f"{model}_data.csv"),
+                             output=str(work / f"run_{model}"))
+        sim_info, param_info, _f, mcmc, iniPar, e_data = _load_common(
+            str(cfg))
+        pl, _ = plans_from_config(sim_info, param_info, dict(mcmc), e_data,
+                                  iniPar)
+        names = list(pl.param_names)
+        rng = np.random.default_rng(0)
+        base = np.array([truth[n] for n in names], dtype=float)
+        active = np.array([bool(param_info["active"][n]) for n in names])
+        states = base[None] * 10.0 ** (
+            rng.uniform(-0.1, 0.1, (8, len(names))) * active[None])
+        g_idx, fp, fp_hi = pl.fwd[0]
+        for dtag, fp_x, dtype in (("f32", fp, torch.float32),
+                                  ("f64", fp_hi, torch.float64)):
+            t = lambda a, d=dtype: torch.as_tensor(  # noqa: E731
+                np.asarray(a), dtype=d)
+            init, raw = expand_states(pl, torch.as_tensor(g_idx),
+                                      t(fp_x.x_centers), t(states),
+                                      t(pl.init_profiles), t(pl.units))
+            p, y0, dts, _ = prepare_batch(init, raw, t(fp_x.dx).repeat(8),
+                                          t(fp_x.dt).repeat(8, 1), model)
+            kw = dict(model=model, scheme_name=fp_x.scheme,
+                      newton_iters=fp_x.newton_iters,
+                      refactor_every=fp_x.refactor_every,
+                      n_ramp=fp_x.n_ramp, ramp_block=fp_x.ramp_block,
+                      newton_plateau=fp_x.newton_plateau)
+            inputs[(model, dtag)] = ([a.contiguous() for a in p], y0, dts,
+                                     t(fp_x.dx).repeat(8), kw)
+    return inputs
+
+
+def _counts(n_steps, kw):
+    """(factorizations, Newton iterations) of one row under kw (sdirk3:
+    three implicit stages; a ramp, if any, factors every step)."""
+    n_newton = 3 * kw["newton_iters"] * n_steps
+    ramp = kw.get("n_ramp")
+    if ramp is None:
+        return n_steps, n_newton
+    return ramp + -(-(n_steps - ramp) // kw["refactor_every"]), n_newton
+
+
+def time_here(inputs_path):
+    """Time this process's checkout (on sys.path) on the saved inputs."""
+    import numpy as np
+    import torch
+
+    from metrotrpl_tpu_torch.physics.models import ScaledParams
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    dev = torch.device("cuda")
+    lib = sk.kernel_library()
+    inputs = torch.load(inputs_path, weights_only=False)
+
+    def cuda_ms(fn, n=N_REP):
+        fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / n
+
+    def on_dev(p, y0, dts, dx, rows):
+        return (ScaledParams(*(a[rows].to(dev) for a in p)),
+                y0[rows].to(dev), dts[:, rows].to(dev), dx[rows].to(dev))
+
+    out = {"repo": os.getcwd(), "library": lib.path.name,
+           "nvcc_s": lib.build_seconds}
+    for (model, dtag), (p, y0, dts, dx, kw) in inputs.items():
+        rec = {}
+        sizes = (48, 9, 1) if dtag == "f64" else (48,)
+        for B in sizes:
+            args = on_dev(p, y0, dts, dx, slice(0, B))
+            rec[f"ms_B{B}"] = cuda_ms(
+                lambda: sk.integrate_observables_cuda(*args, **kw))
+            if B == 48:   # a digest of the outputs, to compare checkouts
+                outs = sk.integrate_observables_cuda(*args, **kw)
+                h = hashlib.sha256()
+                for a in outs:
+                    h.update(a.contiguous().cpu().numpy().tobytes())
+                rec["out_sha256"] = h.hexdigest()[:16]
+        n_steps = dts.shape[0]
+        const = torch.full_like(dts, float(np.median(dts.numpy())))
+        args = on_dev(p, y0, const, dx, slice(0, 48))
+        runs = {"as_is": dict(kw, n_ramp=None, refactor_every=1,
+                              ramp_block=1, newton_plateau=None),
+                "ni1": dict(kw, n_ramp=None, refactor_every=1,
+                            ramp_block=1, newton_plateau=None,
+                            newton_iters=1),
+                "chord5": dict(kw, n_ramp=n_steps % 5, refactor_every=5,
+                               ramp_block=1, newton_plateau=None)}
+        rows, rhs = [], []
+        for name, k in runs.items():
+            ms = cuda_ms(lambda: sk.integrate_observables_cuda(*args,
+                                                               **k))
+            nf, nn = _counts(n_steps, k)
+            rec[f"split_{name}_ms"] = ms
+            rows.append([nf, nn, 1.0])
+            rhs.append(ms)
+        f, n, rest = np.linalg.solve(np.array(rows), np.array(rhs))
+        rec.update(ms_per_factorization=float(f),
+                   ms_per_newton_iteration=float(n),
+                   ms_rest=float(rest), split_dt=float(const[0, 0]),
+                   split_counts=rows)
+        out[f"{model}_{dtag}"] = rec
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--turns", nargs="+", metavar="DIR",
+                    help="checkouts to time as A B ... then in reverse")
+    ap.add_argument("--inputs", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_times: needs a CUDA device")
+    if a.inputs:                   # one checkout, in this process
+        print(json.dumps(time_here(a.inputs)))
+        return
+    sys.path.insert(0, str(REPO))
+    card = nvidia_smi_line()
+    dirs = [Path(d).resolve() for d in (a.turns or [REPO])]
+    order = dirs + dirs[::-1] if a.turns else dirs
+    results = []
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        work = Path(tmp)
+        inputs_path = work / "inputs.pt"
+        torch.save(make_inputs(work), inputs_path)
+        for d in order:
+            env = dict(os.environ, PYTHONPATH=str(d))
+            proc = subprocess.run(
+                [sys.executable, str(HERE), "--inputs", str(inputs_path)],
+                cwd=str(d), env=env, capture_output=True, text=True,
+                timeout=1200)
+            if proc.returncode != 0:
+                sys.exit(f"kernel_times: {d} failed:\n{proc.stdout}\n"
+                         f"{proc.stderr}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            res["card"] = card
+            print(json.dumps(res), flush=True)
+            results.append(res)
+    print(f"card: {card}")
+    for res in results:
+        print(res["repo"], " ".join(
+            f"{k}={v['ms_B48']:.3f}" for k, v in res.items()
+            if isinstance(v, dict)))
+    for k, v in results[0].items():
+        if isinstance(v, dict):
+            same = {r[k]["out_sha256"] == v["out_sha256"] for r in results}
+            print(f"{k}: outputs bit for bit the same in every checkout: "
+                  f"{same == {True}}")
+
+
+if __name__ == "__main__":
+    main()

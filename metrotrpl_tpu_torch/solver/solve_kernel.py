@@ -135,7 +135,7 @@ def _launch(params, y0, dts, dx, model, scheme_name, newton_iters,
         raise ValueError(f"params must have the {N_PARAM_FIELDS} "
                          "ScaledParams fields")
     if nx > 1024:
-        raise ValueError(f"nx={nx} > 1024 (one thread per cell)")
+        raise ValueError(f"nx={nx} > 1024 (the kernel's largest grid)")
     n_steps = dts.shape[0]
     if dts.shape != (n_steps, B) or dx.shape != (B,):
         raise ValueError("dts must be (n_steps, B) and dx (B,)")

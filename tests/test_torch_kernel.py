@@ -145,6 +145,88 @@ def test_cuda_traps_kernel_matches_plain_version(cuda_device, dtype, rtol):
         assert _rel_err(a.cpu().numpy(), b.cpu().numpy()) < rtol
 
 
+def _flags_and_errors(out_k, out_p, thr=0.5):
+    """(kernel flags, plain flags, max rel error, max |d log10|) of two
+    (pl, tr, resid) outputs; the errors over the rows neither flags."""
+    pl_k, tr_k, rs_k = (a.double().cpu().numpy() for a in out_k)
+    pl_p, tr_p, rs_p = (a.double().cpu().numpy() for a in out_p)
+    fk, fp = ~(rs_k.max(axis=0) < thr), ~(rs_p.max(axis=0) < thr)
+    ok = ~(fk | fp)
+    pairs = ((pl_k[:, ok], pl_p[:, ok]), (tr_k[:, ok], tr_p[:, ok]))
+    rel = max(_rel_err(a, b) for a, b in pairs)
+    dlog = max(float(np.max(np.abs(np.log10(np.abs(a))
+                                   - np.log10(np.abs(b)))))
+               for a, b in pairs)
+    return fk, fp, rel, dlog
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [17, 32, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_cuda_kernel_matches_plain_across_widths(cuda_device, model, dtype,
+                                                 nx):
+    """Kernel vs plain version at widths that leave ragged warps (17,
+    100), fill them (32, 128: a thread per block row and cell, factors in
+    shared memory) and pass 128 cells (256: two cells per thread, factors
+    thread-local), chord phases included: the same rows over the Newton
+    threshold 0.5, and on the others float64 rel <= 1e-9, float32
+    |d log10| <= 1e-4 (the chord solve amplifies float32 rounding with
+    nx, and the reduction orders differ)."""
+    p, y0, dts, dx = _kernel_inputs(4, nx, 16, dtype, cuda_device,
+                                    n_ramp=8, model=model)
+    kw = dict(model=model, refactor_every=4, n_ramp=8)
+    out_k = sk.integrate_observables_cuda(p, y0, dts, dx, **kw)
+    out_p = sk.integrate_observables_plain(p, y0, dts, dx, **kw)
+    torch.cuda.synchronize()
+    fk, fp, rel, dlog = _flags_and_errors(out_k, out_p)
+    np.testing.assert_array_equal(fk, fp)
+    assert (~fk).any()
+    if dtype == torch.float64:
+        assert rel <= 1e-9
+    else:
+        assert dlog <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_cuda_kernel_row_independent_of_batch(cuda_device, model, dtype):
+    """A row's outputs do not depend on the batch it is solved in: the
+    first row alone, in 9 rows and in 48 rows, bit for bit (one block per
+    row, nothing shared between blocks)."""
+    p, y0, dts, dx = _kernel_inputs(48, 128, 12, dtype, cuda_device,
+                                    model=model)
+    outs = []
+    for B in (1, 9, 48):
+        sub = (type(p)(*(a[:B] for a in p)), y0[:B], dts[:, :B], dx[:B])
+        outs.append([a[:, 0].cpu() for a in
+                     sk.integrate_observables_cuda(*sub, model=model)])
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_cuda_kernel_flags_nan_row_like_plain(cuda_device, model, dtype):
+    """A NaN in one row's initial state reaches that row's residual in the
+    kernel as in the plain version (the sparse block algebra skips
+    structural zeros, but NaN still wins every max), and only there."""
+    p, y0, dts, dx = _kernel_inputs(4, 32, 8, dtype, cuda_device,
+                                    model=model)
+    y0 = y0.clone()
+    y0[2, 0, 16] = float("nan")
+    out_k = sk.integrate_observables_cuda(p, y0, dts, dx, model=model)
+    out_p = sk.integrate_observables_plain(p, y0, dts, dx, model=model)
+    torch.cuda.synchronize()
+    fk, fp, rel, _ = _flags_and_errors(out_k, out_p)
+    np.testing.assert_array_equal(fk, [False, False, True, False])
+    np.testing.assert_array_equal(fk, fp)
+    assert torch.isnan(out_k[2][1:, 2]).all()
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
     p, y0, dts, dx = _kernel_inputs(2, 8, 4, torch.float32, cuda_device)
@@ -160,6 +242,7 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
 
 _HARNESS = r"""
 #include <cstdio>
+#include <cstring>
 #include <vector>
 #include "sdirk_solve.cuh"
 using namespace sdirk;
@@ -177,7 +260,8 @@ int run() {
   for (double& v : par) std::scanf("%lf", &v);
   std::vector<double> y(C * n);
   for (double& v : y) std::scanf("%lf", &v);
-  const Params<double> p = load_params(par);
+  Params<double> p;  // the fields in their order, as the kernel reads them
+  std::memcpy(&p, par, sizeof p);
   std::vector<Cell<double>> c(n);
   for (int i = 0; i < n; ++i)
     c[i] = make_cell(y[Mo::N * n + i], y[Mo::D * n + i], y[Mo::E * n + i], p);
@@ -195,17 +279,23 @@ int run() {
     double out[C], L[NB], D[NB], U[NB], M[NB], Mi[NB];
     EdgeJac<double> ep = {0, 0, 0, 0, 0, 0, 0, 0};
     if (i > 0) ep = ej[i - 1];
-    if constexpr (C == 3) {
-      rhs_cell(i, n, c[i], jl, Fl, jn[i], F[i], p, out);
-      jac_cell(i, n, c[i], ej[i], ep, p, L, D, U);
-    } else {
-      const double Ntr = y[Mo::T * n + i];
-      rhs_cell_traps(i, n, c[i], Ntr, jl, Fl, jn[i], F[i], p, out);
-      jac_cell_traps(i, n, c[i], Ntr, ej[i], ep, p, L, D, U);
+    for (int r = 0; r < C; ++r) {
+      double* Lr = L + C * r;
+      double* Dr = D + C * r;
+      double* Ur = U + C * r;
+      if constexpr (C == 3) {
+        out[r] = rhs_row(r, i, n, c[i], jl, Fl, jn[i], F[i], p);
+        jac_row(r, i, n, c[i], ej[i], ep, p, Lr, Dr, Ur);
+      } else {
+        const double Ntr = y[Mo::T * n + i];
+        out[r] = rhs_row_traps(r, i, n, c[i], Ntr, jl, Fl, jn[i], F[i], p);
+        jac_row_traps(r, i, n, c[i], Ntr, ej[i], ep, p, Lr, Dr, Ur);
+      }
     }
     for (int e = 0; e < NB; ++e)
       M[e] = (e % (C + 1) == 0 ? 1.0 : 0.0) - 0.1 * D[e];
-    inv<C>(M, Mi);
+    for (int r = 0; r < C; ++r)
+      inv_row<C>(r, [&M](int k, int j) { return M[k * C + j]; }, Mi + C * r);
     for (double v : out) std::printf("%.17g ", v);
     for (const double* A : {(const double*)L, (const double*)D,
                             (const double*)U, (const double*)Mi})
@@ -286,13 +376,206 @@ def test_kernel_cell_math_matches_plain_version_on_cpu(tmp_path):
 
 
 def test_kernel_traps_cell_math_matches_plain_version_on_cpu(tmp_path):
-    """The traps model's per-cell arithmetic (rhs_cell_traps,
-    jac_cell_traps, inv4 in the Schur order of p_inv_small) against the
+    """The traps model's per-cell arithmetic (rhs_row_traps,
+    jac_row_traps, inv4_row in the Schur order of p_inv_small) against the
     plain PyTorch RHS, Jacobian and 4x4 inverse at float64, as the std
     test: each plane within 1e-13 of its max magnitude."""
     got, want = _cell_math_vs_plain(tmp_path, "traps")
     for col in range(want.shape[1]):
         assert _plane_rel(got[:, col], want[:, col]) < 1e-13, col
+
+
+_PCR_HARNESS = r"""
+#include <cstdio>
+#include <cstring>
+#include <vector>
+#include "sdirk_solve.cuh"
+using namespace sdirk;
+// HARNESS_NC (3: std, 4: traps) comes from the command line.
+// "patterns": prints, for each of 10 PCR levels, the compile-time non-zero
+// patterns of the level's L, U, alpha and beta as 0/1 C x C matrices.
+// "pcr": reads nx and the (L, D, U) blocks and a right-hand side of nx
+// cells, runs the PCR factorization and apply row by row with the
+// kernel's helpers (inv_row, pcr_level_row, pcr_apply_row), the
+// neighbours' blocks read from the previous level as the kernel's shared
+// memory holds them, and prints every level's alpha and beta, the final
+// Dinv and the solution.
+constexpr int C = HARNESS_NC, NB = C * C;
+using V = std::vector<double>;
+
+void inv_of(const double* D, int r, double* row) {
+  inv_row<C>(r, [D](int k, int c) { return D[k * C + c]; }, row);
+}
+
+void print(const V& v) {
+  for (double x : v) std::printf("%.17g ", x);
+  std::printf("\n");
+}
+
+int main(int argc, char** argv) {
+  using Pa = Pattern<C>;
+  if (std::strcmp(argv[1], "patterns") == 0) {
+    for (int lev = 0; lev < 10; ++lev) {
+      const unsigned L = lev == 0 ? Pa::L0 : Pa::LS;
+      const unsigned U = lev == 0 ? Pa::U0 : Pa::US;
+      for (int a = 0; a < C; ++a)
+        for (int b = 0; b < C; ++b)
+          std::printf("%d %d %d %d ", pbit(L, a, b), pbit(U, a, b),
+                      pbit(Pa::ALPHA, 0, a), pbit(Pa::BETA, 0, a));
+      std::printf("\n");
+    }
+    return 0;
+  }
+  int n;
+  if (std::scanf("%d", &n) != 1) return 1;
+  V L(n * NB), D(n * NB), U(n * NB), b(n * C);
+  for (V* v : {&L, &D, &U, &b})
+    for (double& x : *v) std::scanf("%lf", &x);
+  int levels = 0;
+  while ((1 << levels) < n) ++levels;
+  std::vector<V> fa, fb;
+  for (int lev = 0, s = 1; lev < levels; ++lev, s *= 2) {
+    V Di(n * NB), L0 = L, U0 = U, al(n * NB), be(n * NB);
+    for (int i = 0; i < n; ++i)
+      for (int r = 0; r < C; ++r) inv_of(&D[i * NB], r, &Di[i * NB + r * C]);
+    for (int i = 0; i < n; ++i) {
+      const int im = i - s >= 0 ? i - s : i, ip = i + s < n ? i + s : i;
+      auto blk = [](const V& v, int j) {
+        return [&v, j](int k, int c) { return v[j * NB + k * C + c]; };
+      };
+      for (int r = 0; r < C; ++r) {
+        auto go = [&](auto first) {
+          pcr_level_row<C, decltype(first)::value>(
+              r, &L[i * NB + r * C], &D[i * NB + r * C], &U[i * NB + r * C],
+              i - s >= 0, i + s < n, blk(Di, im), blk(L0, im), blk(U0, im),
+              blk(Di, ip), blk(L0, ip), blk(U0, ip), &al[i * NB + r * C],
+              &be[i * NB + r * C]);
+        };
+        if (lev == 0)
+          go(std::true_type{});
+        else
+          go(std::false_type{});
+      }
+    }
+    fa.push_back(al);
+    fb.push_back(be);
+    print(al);
+    print(be);
+  }
+  V Dinv(n * NB);
+  for (int i = 0; i < n; ++i)
+    for (int r = 0; r < C; ++r) inv_of(&D[i * NB], r, &Dinv[i * NB + r * C]);
+  print(Dinv);
+  for (int lev = 0, s = 1; lev < levels; ++lev, s *= 2) {
+    const V b0 = b;
+    for (int i = 0; i < n; ++i)
+      for (int r = 0; r < C; ++r) {
+        const V &al = fa[lev], &be = fb[lev];
+        b[i * C + r] = pcr_apply_row<C>(
+            r, b0[i * C + r], i - s >= 0, i + s < n,
+            [&](int c) { return al[i * NB + r * C + c]; },
+            [&](int c) { return be[i * NB + r * C + c]; },
+            [&](int k) { return b0[(i - s) * C + k]; },
+            [&](int k) { return b0[(i + s) * C + k]; });
+      }
+  }
+  V x(n * C);
+  for (int i = 0; i < n; ++i)
+    for (int r = 0; r < C; ++r) {
+      double acc = 0.0;
+      for (int k = 0; k < C; ++k)
+        acc = madd(Dinv[i * NB + r * C + k], b[i * C + k], acc);
+      x[i * C + r] = acc;
+    }
+  print(x);
+  return 0;
+}
+"""
+
+
+def _pcr_harness(tmp_path, model):
+    """Build the PCR row harness for ``model`` with g++ (FMA where the
+    kernel's double algebra has it, no other contraction)."""
+    from metrotrpl_tpu_torch.physics.models import N_COMP
+    from metrotrpl_tpu_torch.solver._build import CSRC
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    src = tmp_path / "pcr.cpp"
+    src.write_text(_PCR_HARNESS)
+    exe = tmp_path / "pcr"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off",
+                    f"-DHARNESS_NC={N_COMP[model]}", "-I", str(CSRC),
+                    str(src), "-o", str(exe)], check=True)
+    return exe
+
+
+@pytest.mark.parametrize("nx", [32, 100, 128, 256])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_kernel_patterns_match_pcr_patterns(tmp_path, model, nx):
+    """The compile-time non-zero patterns of the kernel's header
+    (Pattern<NC>: each level's L, U, alpha and beta) are those
+    solve_kernel.pcr_patterns derives from the model's Jacobian and counts
+    the bound on, at every level of an nx-cell grid."""
+    exe = _pcr_harness(tmp_path, model)
+    out = subprocess.run([str(exe), "patterns"], capture_output=True,
+                         text=True, check=True).stdout.split("\n")
+    C = 3 if model == "std" else 4
+    levels = sk.pcr_patterns(model, nx)
+    assert 0 < len(levels) <= 10
+    for lev, (s, alpha, beta, L, U) in enumerate(levels):
+        got = np.array(out[lev].split(), dtype=int).reshape(C, C, 4)
+        for k, want in enumerate((L, U, alpha, beta)):
+            np.testing.assert_array_equal(got[..., k].astype(bool), want,
+                                          err_msg=f"level {lev}, shift {s}")
+
+
+@pytest.mark.parametrize("nx", [16, 33])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_kernel_pcr_rows_match_plain_factor_and_apply(tmp_path, model, nx):
+    """The kernel's per-row PCR helpers (a row of each block product on
+    the level's non-zero pattern, a row of the block inverse, the row's
+    apply update, FMA in double) against the plain pcr_factor / pcr_apply
+    at float64 on random blocks with the model's Jacobian pattern: every
+    level's alpha and beta, the final Dinv and the solution within 1e-12
+    of each plane's largest magnitude."""
+    from metrotrpl_tpu_torch.ops.blocktridiag import pcr_apply, pcr_factor
+
+    exe = _pcr_harness(tmp_path, model)
+    C = 3 if model == "std" else 4
+    JL, JD, JU = sk.jacobian_pattern(model)
+    rng = np.random.default_rng(nx)
+    L = rng.uniform(-1, 1, (nx, C, C)) * JL
+    U = rng.uniform(-1, 1, (nx, C, C)) * JU
+    D = rng.uniform(-1, 1, (nx, C, C)) * JD + 6.0 * np.eye(C)
+    L[0], U[-1] = 0.0, 0.0
+    b = rng.uniform(-1, 1, (nx, C))
+    stdin = f"{nx} " + " ".join(repr(float(v)) for v in
+                                [*L.ravel(), *D.ravel(), *U.ravel(),
+                                 *b.ravel()])
+    out = subprocess.run([str(exe), "pcr"], input=stdin, capture_output=True,
+                         text=True, check=True).stdout.strip().split("\n")
+    rows = [np.array(line.split(), dtype=float) for line in out]
+
+    def planes(A):       # (nx, C, C) -> nested tuple of (nx,) planes
+        return tuple(tuple(torch.as_tensor(A[:, a, c]) for c in range(C))
+                     for a in range(C))
+
+    alphas, betas, dinv = pcr_factor(planes(L), planes(D), planes(U))
+    x = pcr_apply((alphas, betas, dinv),
+                  tuple(torch.as_tensor(b[:, c]) for c in range(C)))
+    want = [blk for ab in zip(alphas, betas) for blk in ab] + [dinv]
+    assert len(rows) == len(want) + 1
+    for got, blk in zip(rows, want):
+        got = got.reshape(nx, C, C)
+        for a in range(C):
+            for c in range(C):
+                w = blk[a][c].numpy()
+                assert _plane_rel(got[:, a, c], w) < 1e-12, (a, c)
+    got_x = rows[-1].reshape(nx, C)
+    for c in range(C):
+        assert _plane_rel(got_x[:, c], x[c].numpy()) < 1e-12, c
 
 
 def _newton_blocks(model, nx, hg=0.7):
@@ -404,3 +687,267 @@ def test_solve_flops_counts_one_factorization_per_chord_block():
                            ramp_block=2, refactor_every=4)
     assert free - chord == (40 - 15) * sk.factor_flops("traps", 32)
     assert sk.solve_flops("std", 32, 40) < free
+
+
+# ---- the kernel's own source, run on the CPU ----
+#
+# The CUDA source with its launcher cut, compiled with g++ against a
+# stand-in for the CUDA built-ins it uses: one std::thread per CUDA
+# thread, __syncthreads a block-wide std::barrier, the warp collectives a
+# per-warp barrier around a shared buffer, shared memory a buffer filled
+# with NaN bytes (a read of a plane no thread wrote shows up as NaN).
+# Every block of a launch runs in turn.
+
+_EMU_RUNTIME = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __grid_constant__
+#define __launch_bounds__(...)
+struct Dim { unsigned x; };
+namespace emu {
+inline thread_local Dim tid, bid;
+inline Dim bdim;
+inline unsigned char* smem;
+inline std::barrier<>* block_bar;
+inline std::vector<std::barrier<>*> warp_bar;
+inline double wbuf[1024];
+inline unsigned ubuf[1024];
+}
+#define threadIdx emu::tid
+#define blockIdx emu::bid
+#define blockDim emu::bdim
+inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int off) {
+  const unsigned t = threadIdx.x, w = t >> 5, lane = t & 31;
+  emu::wbuf[t] = (double)v;
+  emu::warp_bar[w]->arrive_and_wait();
+  const T o = (T)emu::wbuf[(w << 5) | (lane ^ off)];
+  emu::warp_bar[w]->arrive_and_wait();
+  return o;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  const unsigned t = threadIdx.x, w = t >> 5;
+  emu::ubuf[t] = v;
+  emu::warp_bar[w]->arrive_and_wait();
+  unsigned m = 0;
+  for (unsigned l = 0; l < 32; ++l)
+    m = emu::ubuf[(w << 5) | l] > m ? emu::ubuf[(w << 5) | l] : m;
+  emu::warp_bar[w]->arrive_and_wait();
+  return m;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u; std::memcpy(&u, &f, 4); return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f; std::memcpy(&f, &u, 4); return f;
+}
+inline long long __double_as_longlong(double d) {
+  long long u; std::memcpy(&u, &d, 8); return u;
+}
+inline double __longlong_as_double(long long u) {
+  double d; std::memcpy(&d, &u, 8); return d;
+}
+"""
+
+_EMU_MAIN = r"""
+// Reads one launch from stdin (B nx n_steps n_stages newton_iters
+// n_phase1 ramp_block refactor ni_plateau gamma, the Butcher table, then
+// dt, y0, par, dx as the C entry points take them) and prints the three
+// (B, n_steps + 1) outputs, one per line.
+#include <cstdio>
+#include <thread>
+#include "kernel_cpu.h"
+using namespace sdirk;
+
+template <typename S, int NC, int CPT>
+void run(int B, int nx, int L, int W, int cpt, const Scheme<S>& sc,
+         const Plan& plan, const std::vector<S>* in, std::vector<S>* out) {
+  const int T = NC * W;
+  std::vector<unsigned char> smem(smem_bytes<S, NC, CPT>(nx, L) + 64);
+  for (int b = 0; b < B; ++b) {
+    std::memset(smem.data(), 0xFF, smem.size());
+    emu::smem = smem.data();
+    emu::bdim.x = T;
+    std::barrier<> bar(T);
+    emu::block_bar = &bar;
+    std::vector<std::barrier<>*> wb;
+    for (int w = 0; w < T / 32; ++w) wb.push_back(new std::barrier<>(32));
+    emu::warp_bar = wb;
+    std::vector<std::thread> th;
+    for (int t = 0; t < T; ++t)
+      th.emplace_back([&, t] {
+        emu::tid.x = t;
+        emu::bid.x = b;
+        sdirk_solve_kernel<S, NC, CPT>(
+            in[0].data(), in[1].data(), in[2].data(), in[3].data(),
+            out[0].data(), out[1].data(), out[2].data(), nx, L, W, cpt, sc,
+            plan);
+      });
+    for (auto& x : th) x.join();
+    for (auto* x : wb) delete x;
+  }
+}
+
+template <typename S, int NC>
+int go() {
+  int B, nx, n_steps, nst, ni, n_phase1, R, Fr, nip;
+  double gamma;
+  if (std::scanf("%d %d %d %d %d %d %d %d %d %lf", &B, &nx, &n_steps, &nst,
+                 &ni, &n_phase1, &R, &Fr, &nip, &gamma) != 10)
+    return 1;
+  Scheme<S> sc;
+  sc.n_stages = nst;
+  std::vector<double> A(nst * nst);
+  for (double& v : A) std::scanf("%lf", &v);
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c)
+      sc.A[r][c] = (r < nst && c < nst) ? S(A[r * nst + c]) : S(0);
+  sc.gamma = S(gamma);
+  const Plan plan{n_steps, ni, n_phase1, R, Fr, nip};
+  const size_t sizes[4] = {(size_t)B * n_steps, (size_t)B * NC * nx,
+                           (size_t)B * N_PARAM, (size_t)B};
+  std::vector<S> in[4], out[3];
+  for (int k = 0; k < 4; ++k) {
+    in[k].resize(sizes[k]);
+    for (S& x : in[k]) {
+      double d;
+      std::scanf("%lf", &d);
+      x = S(d);
+    }
+  }
+  for (auto& o : out) o.assign((size_t)B * (n_steps + 1), S(0));
+  int L = 0;
+  while ((1 << L) < nx) ++L;
+  const int cpt = nx <= 128 ? 1 : (nx + 127) / 128;  // as launch() picks
+  const int W = ((nx + cpt - 1) / cpt + 31) / 32 * 32;
+  if (cpt == 1)
+    run<S, NC, 1>(B, nx, L, W, cpt, sc, plan, in, out);
+  else if (cpt == 2)
+    run<S, NC, 2>(B, nx, L, W, cpt, sc, plan, in, out);
+  else
+    run<S, NC, 8>(B, nx, L, W, cpt, sc, plan, in, out);
+  for (auto& o : out) {
+    for (S x : o) std::printf("%.17g ", (double)x);
+    std::printf("\n");
+  }
+  return 0;
+}
+
+int main(int argc, char** argv) {
+  const bool f64 = argv[2][0] == 'd';
+  if (argv[1][0] == '3') return f64 ? go<double, 3>() : go<float, 3>();
+  return f64 ? go<double, 4>() : go<float, 4>();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def kernel_on_cpu(tmp_path_factory):
+    """The solve kernel's CUDA source built with g++ into a CPU program
+    (the launcher cut, the built-ins emulated); no FP contraction but the
+    source's own fma, as nvcc builds it with -fmad=false."""
+    from metrotrpl_tpu_torch.solver._build import CSRC
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    d = tmp_path_factory.mktemp("kernel_cpu")
+    src = (CSRC / "sdirk_solve.cu").read_text()
+    src = src[:src.index("template <typename S, int NC>\nint launch(")]
+    src = src.replace("#include <cuda_runtime.h>", '#include "emu_rt.h"')
+    src = src.replace(
+        "extern __shared__ __align__(16) unsigned char smem_raw[];",
+        "unsigned char* smem_raw = emu::smem;")
+    (d / "kernel_cpu.h").write_text(src + "}  // namespace sdirk\n")
+    (d / "emu_rt.h").write_text(_EMU_RUNTIME)
+    (d / "main.cpp").write_text(_EMU_MAIN)
+    exe = d / "kernel_cpu"
+    subprocess.run([gxx, "-O1", "-std=c++20", "-pthread",
+                    "-ffp-contract=off", "-I", str(CSRC), "-I", str(d),
+                    str(d / "main.cpp"), "-o", str(exe)], check=True)
+    return exe
+
+
+def _run_kernel_on_cpu(exe, model, p, y0, dts, dx, **kw):
+    """The kernel's outputs (pl, tr, resid), each (n_steps + 1, B), from
+    the CPU build, on the wrapper's inputs and plan arguments."""
+    from metrotrpl_tpu_torch.solver.sdirk import SDIRK_SCHEMES
+
+    n_steps, B = dts.shape
+    ni = kw.get("newton_iters", 2)
+    ramp, R, Fr, ni_p = sk._normalize_chord(
+        n_steps, kw.get("refactor_every", 1), kw.get("n_ramp"),
+        kw.get("ramp_block", 1), ni, kw.get("newton_plateau"))
+    sch = SDIRK_SCHEMES["sdirk3"]
+    par = torch.cat([f.reshape(B, 1) for f in p], 1)
+    head = [B, y0.shape[-1], n_steps, sch.A.shape[0], ni,
+            n_steps if ramp is None else ramp, R, Fr, ni_p,
+            repr(float(sch.gamma))]
+    vals = [*sch.A.ravel().tolist(), *dts.T.reshape(-1).tolist(),
+            *y0.reshape(-1).tolist(), *par.reshape(-1).tolist(),
+            *dx.tolist()]
+    stdin = " ".join(map(str, head)) + " " + " ".join(
+        repr(float(v)) for v in vals)
+    C = "3" if model == "std" else "4"
+    dt = "d" if y0.dtype == torch.float64 else "f"
+    out = subprocess.run([str(exe), C, dt], input=stdin, capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    return [np.array(line.split(), dtype=float).reshape(B, n_steps + 1).T
+            for line in out.strip().split("\n")]
+
+
+@pytest.mark.parametrize("nx", [17, 150])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_kernel_source_on_cpu_matches_plain_version(kernel_on_cpu, model,
+                                                    dtype, nx):
+    """The kernel's CUDA source, run on the CPU thread for thread, against
+    the plain version, chord phases included: a ragged single warp per
+    row (nx=17: one cell per thread, factors in shared memory) and two
+    cells per thread (nx=150, factors thread-local). float64 within rel
+    1e-12 (the kernel's fma against the plain version's separate
+    roundings), float32 within |d log10| 1e-5 on the observables (the
+    block sums run in another order); the residuals alike."""
+    n_steps = 6 if nx < 100 else 3
+    kw = dict(refactor_every=2, n_ramp=n_steps - 2)
+    p, y0, dts, dx = _kernel_inputs(2, nx, n_steps, dtype, "cpu",
+                                    n_ramp=n_steps - 2, model=model)
+    got = _run_kernel_on_cpu(kernel_on_cpu, model, p, y0, dts, dx, **kw)
+    want = [a.double().numpy() for a in sk.integrate_observables_plain(
+        p, y0, dts, dx, model=model, **kw)]
+    assert all(np.isfinite(a).all() for a in got)
+    for a, b in zip(got[:2], want[:2]):
+        if dtype == torch.float64:
+            assert _rel_err(a, b) < 1e-12
+        else:
+            assert np.max(np.abs(np.log10(a) - np.log10(b))) < 1e-5
+    np.testing.assert_allclose(got[2], want[2],
+                               rtol=1e-6 if dtype == torch.float64 else 1e-3,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_kernel_source_on_cpu_flags_nan_row(kernel_on_cpu, model):
+    """A NaN in one row's initial state reaches that row's residual in the
+    kernel's source run on the CPU, as in the plain version, and no other
+    row's."""
+    p, y0, dts, dx = _kernel_inputs(3, 24, 4, torch.float64, "cpu",
+                                    model=model)
+    y0 = y0.clone()
+    y0[1, 0, 12] = float("nan")
+    got = _run_kernel_on_cpu(kernel_on_cpu, model, p, y0, dts, dx)
+    want = sk.integrate_observables_plain(p, y0, dts, dx, model=model)
+    flags = ~(got[2].max(axis=0) < 0.5)
+    np.testing.assert_array_equal(flags, [False, True, False])
+    np.testing.assert_array_equal(flags,
+                                  ~(want[2].numpy().max(axis=0) < 0.5))
+    assert np.isnan(got[2][1:, 1]).all()
