@@ -37,9 +37,30 @@ Phases, each of which raises on failure:
 7. The traps main path: `cli mcmc --device cuda` on the traps config for
    100 iterations, checkpointing every 50, with the checks of phase 4 on
    the traps kernels.
+8. The fused std walk: `cli mcmc --ensembles 8 --device cuda` on the
+   flagship config for 100 iterations, checkpointing at 50. All 8
+   CPU{j}-final.pik must load, every cold chain be finite with acceptance
+   in [0.05, 0.8], the replicas differ, the float32 std kernel launch
+   once per iteration (the initial evaluation included: launches =
+   iterations, not 8 times that) and the float64 rung at least once.
+   Then the steady-state aggregate walker-steps/s of fused windows at E =
+   1, 2, 4, 8 (30 timed iterations from the walk's last states).
+9. Fused equals separate on the card: metro(n_ensembles=2) for 20
+   iterations against each replica walked alone at its seed; History and
+   swap counters must agree bit for bit.
+10. The dense sampler: `cli dense --device cuda` on the flagship config,
+    2048 samples (4 chunks of 512 states x 6 curves). Every P must be
+    finite or a conceded -inf; solves/s, and the rung's launches.
+11. The MLE: `cli mle --maxiter 40 --device cuda` on the flagship config
+    (float64: the std double kernel on the fast and the rung plan). The
+    best logll of the trace must be finite and no worse than the first.
+12. Kernel time against batch size, per instantiation (CUDA events):
+    float at B = 48, 96, 192, 384 on the fast plan, double at B = 9, 72,
+    144 on the rung plan, beside the resident blocks per SM that the CUDA
+    occupancy API gives for the launch's variant.
 
-Launch counts are zeroed just before each main path (phases 4 and 7) and
-read just after it. The last three lines of standard output are the
+Launch counts are zeroed just before each main path (phases 4, 7, 8, 10
+and 11) and read just after it. The last three lines of standard output are the
 kernels JSON object (one entry per instantiation, with its launches on
 its main path, its error against the plain version, CUDA-event times of
 kernel and plain version, and its bound: the larger of the FLOPs it needs
@@ -61,6 +82,11 @@ import torch
 REPO = Path(__file__).resolve().parent
 N_ITERS = 200          # std walk
 N_ITERS_TRAPS = 100    # traps walk
+E_FUSED = 8            # fused ensembles of the fused std walk
+N_ITERS_FUSED = 100    # its iterations
+N_ITERS_PAIR = 20      # fused against separate walks
+N_DENSE = 2048         # dense samples
+MLE_MAXITER = 40       # Nelder-Mead iterations
 
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit):
 #: non-tensor-core FLOP/s per scalar type, and the HBM rate in bytes/s
@@ -128,9 +154,14 @@ def main():
         newton_div_tol_default,
     )
     from metrotrpl_tpu_torch.inference.metropolis import (
+        build_mh_kernel,
         load_checkpoint,
+        metro,
         plans_from_config,
+        vmap_ensembles,
     )
+    from metrotrpl_tpu_torch.inference.mh_core import TorchDraws
+    from metrotrpl_tpu_torch.inference.moves import n_tries
     from metrotrpl_tpu_torch.solver import solve_kernel as sk
     from metrotrpl_tpu_torch.solver.forward import prepare_batch
     from metrotrpl_tpu_torch.solver.sdirk import NEWTON_DAMP
@@ -178,17 +209,17 @@ def main():
     def load_plan(path, model):
         sim_info, param_info, _f, mcmc, iniPar, e_data = _load_common(
             str(path))
-        plan, _ = plans_from_config(sim_info, param_info, dict(mcmc),
-                                    e_data, iniPar)
+        plan, move = plans_from_config(sim_info, param_info, dict(mcmc),
+                                       e_data, iniPar)
         g_idx, fp, fp_hi = plan.fwd[0]
         if (fp.nx != 128 or len(g_idx) != 6 or fp.model != model
                 or fp_hi.solve_dtype != "float64"):
             raise RuntimeError(f"the {model} plan is not nx=128 x 6 with "
                                "an f64 rung")
-        return plan, param_info, mcmc
+        return plan, move, param_info, mcmc
 
-    plan, param_info, mcmc = load_plan(cfg, "std")
-    plan_t, param_info_t, _ = load_plan(cfg_traps, "traps")
+    plan, move, param_info, mcmc = load_plan(cfg, "std")
+    plan_t, _, param_info_t, _ = load_plan(cfg_traps, "traps")
     # the ladder's thresholds at nx=128: Newton divergence, and the
     # cap-pinned rows that repair ungated
     resid_tol = newton_div_tol_default(128)
@@ -372,6 +403,205 @@ def main():
     launches_traps = walk(7, cfg_traps, work / "run_traps", N_ITERS_TRAPS,
                           "traps")
 
+    def flagship_config(name, n_iters, ckpt, out):
+        """The flagship config (std, the phase-4 data) with another walk
+        length, checkpoint interval and output directory."""
+        path = work / name
+        write_example_config(str(path), model="std", fast=True,
+                             num_iters=n_iters, init_cond=str(fluences),
+                             measurement=str(work / "staub_nonoise.csv"),
+                             output=str(work / out), checkpoint_freq=ckpt)
+        return path
+
+    # ---- phase 8: the fused std walk, `cli mcmc --ensembles 8` ----
+    cfg_e8 = flagship_config("fused.txt", N_ITERS_FUSED, N_ITERS_FUSED // 2,
+                             "run_e8")
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli(["mcmc", str(cfg_e8), "--ensembles", str(E_FUSED), "--device",
+         "cuda"])
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    launches_e8 = dict(sk.LAUNCHES)
+    enss = [load_checkpoint(str(work / "run_e8" / f"CPU{j}-final.pik"))
+            for j in range(E_FUSED)]
+    K = enss[0].H.accept.shape[0]
+    acc_cold = [float(e.H.accept[0, 1:].mean()) for e in enss]
+    n32, n64 = launches_e8[("std", f32)], launches_e8[("std", f64)]
+    print(f"phase 8: fused std walk, {E_FUSED} ensembles x {N_ITERS_FUSED} "
+          f"iterations x {K} chains in {fused_s:.2f} s (plan build and "
+          f"first evaluation included): "
+          f"{N_ITERS_FUSED * K * E_FUSED / fused_s:.1f} aggregate "
+          f"walker-steps/s on {card}; cold-chain acceptance "
+          f"{np.round(acc_cold, 3).tolist()}; launches std f32 {n32}, "
+          f"f64 {n64}")
+    for j, e in enumerate(enss):
+        if (e.latest_iter != N_ITERS_FUSED
+                or not np.isfinite(e.H.loglikelihood[0]).all()
+                or not 0.05 <= acc_cold[j] <= 0.8):
+            raise RuntimeError(f"phase 8: replica {j}: latest_iter "
+                               f"{e.latest_iter}, cold-chain acceptance "
+                               f"{acc_cold[j]} or a non-finite logll")
+    if any(np.array_equal(enss[0].H.states, e.H.states) for e in enss[1:]):
+        raise RuntimeError("phase 8: two replicas walked the same chain")
+    if n32 != N_ITERS_FUSED or n64 < 1:
+        raise RuntimeError(f"phase 8: std f32 launched {n32} times for "
+                           f"{N_ITERS_FUSED} evaluations (one per "
+                           f"iteration and the initial one), f64 {n64}")
+
+    # steady state: fused windows at E = 1, 2, 4, 8 from the walk's last
+    # states, 5 warm-up and 30 timed iterations each
+    ef = enss[0].ensemble_fields
+    temps_np = np.asarray(ef["_T"], dtype=float)
+    rates = {}
+    for E in (1, 2, 4, 8):
+        kern = vmap_ensembles(build_mh_kernel(
+            plan, move, temps_np, ef["base_trial_move"], ef["temper_freq"],
+            True, dtype=f32, device=dev))
+        P = len(plan.param_names)
+        sources = [TorchDraws(1000 + e, K, P, n_tries(move),
+                              move.mu_constraint is not None, f32, dev)
+                   for e in range(E)]
+        st = torch.as_tensor(np.stack([e.H.states[:, :, -1]
+                                       for e in enss[:E]]),
+                             dtype=f32, device=dev)
+        out = kern.run_window(st, kern.init_ll(st), 1, 5, sources)
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = kern.run_window(out[0], out[1], 6, 30, sources)
+        _ = [h.cpu() for h in out[5]]
+        dt = time.perf_counter() - t0
+        rates[E] = dict(
+            walker_steps_per_s=30 * K * E / dt, ms_per_iteration=dt / 30e-3,
+            f32_per_iteration=sk.LAUNCHES[("std", f32)] / 30,
+            f64_per_iteration=sk.LAUNCHES[("std", f64)] / 30)
+    print("phase 8 steady state (30 iterations after 5): " + "; ".join(
+        f"E={E}: {r['walker_steps_per_s']:.1f} aggregate walker-steps/s, "
+        f"{r['ms_per_iteration']:.3f} ms/iteration, launches per iteration "
+        f"std f32 {r['f32_per_iteration']:.2f} f64 "
+        f"{r['f64_per_iteration']:.2f}" for E, r in rates.items())
+        + f" on {card}")
+
+    # ---- phase 9: fused equals separate on the card ----
+    cfg_pair = flagship_config("pair.txt", N_ITERS_PAIR, N_ITERS_PAIR,
+                               "run_pair")
+    sim9, pi9, _f, mc9, ini9, ed9 = _load_common(str(cfg_pair))
+
+    def walk_pair(out, **kw):
+        return metro(sim9, ini9, ed9, dict(mc9, output_path=str(work / out)),
+                     pi9, device="cuda", trap_signals=False, **kw)
+
+    pair = walk_pair("pair_fused", seed=77, n_ensembles=2)
+    for e in range(2):
+        solo = walk_pair(f"pair_solo{e}", seed=77 + e, export_path="s.pik")
+        for a in ("states", "loglikelihood", "accept", "swap_attempts",
+                  "swap_accept"):
+            x, y = getattr(pair[e].H, a), getattr(solo.H, a)
+            if not np.array_equal(x, y):
+                raise RuntimeError(
+                    f"phase 9: replica {e} {a} differs from its separate "
+                    f"walk: max |diff| "
+                    f"{np.max(np.abs(x.astype(float) - y)):.3e}")
+    print(f"phase 9: metro(n_ensembles=2) x {N_ITERS_PAIR} iterations "
+          "equals each replica walked alone at its seed, History and swap "
+          f"counters bit for bit, on {card}")
+
+    # ---- phase 10: the dense sampler, `cli dense` ----
+    cfg_dense = flagship_config("dense.txt", N_DENSE, N_DENSE, "run_dense")
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli(["dense", str(cfg_dense), "--device", "cuda"])
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    launches_dense = dict(sk.LAUNCHES)
+    Pd = np.load(work / "run_dense" / "CPU0_P.npy")
+    n_fin, n_inf = int(np.isfinite(Pd).sum()), int((Pd == -np.inf).sum())
+    n_chunks = -(-N_DENSE // 512)
+    # the steady rate: one more chunk of 512 samples, warm
+    Xd = np.load(work / "run_dense" / "CPU0_X.npy")[:512]
+    ev = make_eval_logll(plan, dtype=f32, device=dev)
+    one = torch.ones(1, dtype=f32, device=dev)
+    xs = torch.as_tensor(Xd, dtype=f32, device=dev)
+    rung_rows = int(ev(xs, one)["repair_states"].sum())
+    chunk_ms = cuda_ms(lambda: ev(xs, one), 3)
+    print(f"phase 10: dense, {N_DENSE} samples x 6 curves in "
+          f"{dense_s:.2f} s (plan build included): "
+          f"{N_DENSE * 6 / dense_s:.1f} solves/s; one warm chunk of 512 "
+          f"samples (the walk's plan) {chunk_ms:.3f} ms = "
+          f"{512 * 6 / chunk_ms * 1e3:.1f} solves/s, {rung_rows} of its "
+          f"3072 rows through the rung, on {card}; finite P {n_fin}, "
+          f"conceded -inf {n_inf}; "
+          f"launches std f32 {launches_dense[('std', f32)]}, f64 (the "
+          f"rung) {launches_dense[('std', f64)]}")
+    if n_fin + n_inf != N_DENSE or n_fin == 0:
+        raise RuntimeError("phase 10: a dense P is NaN or +inf, or none is "
+                           "finite")
+    if launches_dense[("std", f32)] != n_chunks:
+        raise RuntimeError(f"phase 10: std f32 launched "
+                           f"{launches_dense[('std', f32)]} times for "
+                           f"{n_chunks} chunks")
+
+    # ---- phase 11: the MLE, `cli mle` ----
+    cfg_mle = flagship_config("mle.txt", N_ITERS, N_ITERS, "run_mle")
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli(["mle", str(cfg_mle), "--maxiter", str(MLE_MAXITER), "--device",
+         "cuda"])
+    torch.cuda.synchronize()
+    mle_s = time.perf_counter() - t0
+    launches_mle = dict(sk.LAUNCHES)
+    ens_mle = load_checkpoint(str(work / "run_mle" / "MLE0-final.pik"))
+    trace = ens_mle.H.loglikelihood[0, 1:ens_mle.latest_iter]
+    print(f"phase 11: mle, {MLE_MAXITER} Nelder-Mead iterations, "
+          f"{len(trace)} evaluations in {mle_s:.2f} s on {card}: logll "
+          f"first {trace[0]:.4f}, best {trace.max():.4f}; launches std f64 "
+          f"{launches_mle[('std', f64)]}, f32 {launches_mle[('std', f32)]}")
+    if not (np.isfinite(trace.max()) and trace.max() >= trace[0]):
+        raise RuntimeError("phase 11: the MLE's best logll is not finite "
+                           "or worse than its first")
+    if launches_mle[("std", f64)] < len(trace) \
+            or launches_mle[("std", f32)]:
+        raise RuntimeError("phase 11: the MLE did not run every evaluation "
+                           "through the std double kernel")
+
+    # ---- phase 12: kernel time against batch size ----
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_batch = {}
+
+    def batch_times(pl, pinfo, truth):
+        names = list(pl.param_names)
+        rng = np.random.default_rng(1)
+        base = np.array([truth[n] for n in names], dtype=float)
+        active = np.array([bool(pinfo["active"][n]) for n in names])
+        states = base[None] * 10.0 ** (
+            rng.uniform(-0.1, 0.1, (64, len(names))) * active[None])
+        _, fp, fp_hi = pl.fwd[0]
+        for dl, fp_x, dtype, Bs in (("f32", fp, f32, (48, 96, 192, 384)),
+                                    ("f64", fp_hi, f64, (9, 72, 144))):
+            label = f"{fp_x.model}_{dl}"
+            (p, y0, dts, dx), kw = batch(pl, states[:max(Bs) // 6 + 1],
+                                         fp_x, dtype)
+            occ = sk.occupancy(fp_x.model, dtype, 128)
+            resident = occ["blocks_per_sm"] * n_sm
+            times = {}
+            for B in Bs:
+                sub = (type(p)(*(a[:B] for a in p)), y0[:B], dts[:, :B],
+                       dx[:B])
+                times[B] = cuda_ms(
+                    lambda: sk.integrate_observables_cuda(*sub, **kw), 10)
+            by_batch[label] = dict(ms=times, **occ, resident_rows=resident)
+            print(f"phase 12 {label}: kernel ms at B = " + ", ".join(
+                f"{B}: {t:.3f} ({-(-B // resident)} wave"
+                f"{'s' if B > resident else ''})" for B, t in times.items())
+                + f"; {occ['blocks_per_sm']} blocks/SM x {n_sm} SMs = "
+                f"{resident} resident rows ({occ['threads']} threads, "
+                f"{occ['smem_bytes']} B shared per block), n_steps "
+                f"{fp_x.n_steps}, on {card}")
+
+    batch_times(plan, param_info, STAUB_TRUE)
+    batch_times(plan_t, param_info_t, truth_t)
+
     # one entry per instantiation; launches are each model's main-path
     # counts; max_abs_err is in decades of the observables
     launch_of = {"std": launches_std, "traps": launches_traps}
@@ -380,6 +610,11 @@ def main():
         "source": "metrotrpl_tpu_torch/solver/csrc/sdirk_solve.cu",
         "replaces": "metrotrpl_tpu/solver/pallas_step.py:47",
         "launches": launch_of[model][(model, dtype)],
+        "launches_fused_e8": launches_e8[(model, dtype)],
+        "launches_dense": launches_dense[(model, dtype)],
+        "launches_mle": launches_mle[(model, dtype)],
+        "ms_by_batch": by_batch[f"{model}_{dl}"]["ms"],
+        "blocks_per_sm": by_batch[f"{model}_{dl}"]["blocks_per_sm"],
         **results[f"{model}_{dl}"],
     } for model in ("std", "traps") for dl, dtype in (("f32", f32),
                                                        ("f64", f64))]

@@ -1,14 +1,19 @@
 """Command-line entry points of the port.
 
-    python -m metrotrpl_tpu_torch.cli mcmc <config.txt> [--device cuda]
+    python -m metrotrpl_tpu_torch.cli mcmc <config.txt> [--ensembles E]
+    python -m metrotrpl_tpu_torch.cli dense <config.txt>
+    python -m metrotrpl_tpu_torch.cli mle <config.txt> [--maxiter N]
     python -m metrotrpl_tpu_torch.cli write-example <out.txt> [--fast]
 
-``mcmc`` reads the reference config-script format with the port's
-``config`` package and writes ``CPU{jobid}-final.pik`` into the config's
-output path; ``write-example`` writes the staub-MAPI example config, as
-``metrotrpl_tpu.cli write-example`` does, and synthesizes its data with
-the port's float64 LSODA oracle. :func:`write_example_config` also writes
-the same example under the shallow-trap model.
+The inference commands take ``--device`` (default cuda) and read the
+reference config-script format with the port's ``config`` package.
+``mcmc`` writes ``CPU{j}-final.pik`` per replica into the config's output
+path; ``dense`` writes ``CPU{jobid}_P.npy`` / ``_X.npy``; ``mle`` writes
+``MLE{jobid}-final.pik``. ``write-example`` writes the staub-MAPI
+example config, as ``metrotrpl_tpu.cli write-example`` does, and
+synthesizes its data with the port's float64 LSODA oracle.
+:func:`write_example_config` also writes the same example under the
+shallow-trap model.
 """
 
 import argparse
@@ -66,20 +71,75 @@ def _resolve_out(args):
 def cmd_mcmc(args):
     from metrotrpl_tpu_torch.inference.metropolis import metro
 
-    if args.ensembles != 1 or args.mesh:
+    if args.mesh:
         raise NotImplementedError(
-            "--ensembles > 1 and --mesh are not yet ported")
+            "--mesh (the sharded multi-device walk) is not ported yet")
     jobid = _resolve_jobid(args)
     (sim_info, param_info, _meas, MCMC_fields,
      iniPar, e_data) = _load_common(_resolve_config(args.config, jobid))
-    seed = args.seed + jobid if args.seed is not None \
-        else (jobid or 235817049752375780)
-    export_path = f"CPU{jobid}-final.pik"
+    n_ens = args.ensembles
+    # as metrotrpl_tpu.cli: array task J covers replica jobids
+    # J*E .. J*E+E-1, each seeded args.seed + j and written to
+    # CPU{j}-final.pik, so array tasks sharing an output path get
+    # disjoint streams and files
+    jobids = [jobid * n_ens + e for e in range(n_ens)]
+    seeds = [args.seed + j if args.seed is not None
+             else (j or 235817049752375780) for j in jobids]
+    export_paths = [f"CPU{j}-final.pik" for j in jobids]
     metro(sim_info, iniPar, e_data, MCMC_fields, param_info,
-          verbose=args.verbose, export_path=export_path, device=args.device,
-          logger_name=f"Ensemble{jobid}", seed=seed, irf_dir=args.irf_dir)
-    print(f"Done. Output: "
-          f"{os.path.join(MCMC_fields['output_path'], export_path)}")
+          verbose=args.verbose, export_path=export_paths[0],
+          device=args.device, logger_name=f"Ensemble{jobid}", seed=seeds[0],
+          seeds=seeds, export_paths=export_paths, irf_dir=args.irf_dir,
+          n_ensembles=n_ens)
+    print(f"Done. Outputs in {MCMC_fields['output_path']}: "
+          f"{', '.join(export_paths)}")
+
+
+def _start_mode(args, name):
+    """The job id, parsed config and data, and run logger of a ``dense`` or
+    ``mle`` run, with the config's IRF tables loaded into MCMC_fields."""
+    from metrotrpl_tpu_torch.io.logging import start_logging
+    from metrotrpl_tpu_torch.ops.convolve import load_irf_tables
+
+    jobid = _resolve_jobid(args)
+    (sim_info, param_info, _meas, MCMC_fields,
+     iniPar, e_data) = _load_common(_resolve_config(args.config, jobid))
+    logger, handler = start_logging(
+        log_dir=MCMC_fields["output_path"], name=f"{name}{jobid}",
+        verbose=args.verbose)
+    if MCMC_fields.get("irf_convolution", None) is not None:
+        MCMC_fields["_IRF_tables"] = load_irf_tables(
+            MCMC_fields["irf_convolution"], args.irf_dir)
+    return jobid, sim_info, param_info, MCMC_fields, iniPar, e_data, \
+        logger, handler
+
+
+def cmd_dense(args):
+    from metrotrpl_tpu_torch.inference.dense import bayes, export
+    from metrotrpl_tpu_torch.io.logging import stop_logging
+
+    (jobid, sim_info, param_info, MCMC_fields, iniPar, e_data, logger,
+     handler) = _start_mode(args, "Dense")
+    N, P, X = bayes(None, None, iniPar, sim_info, e_data, MCMC_fields,
+                    param_info, logger=logger, seed=jobid,
+                    device=args.device)
+    out = os.path.join(MCMC_fields["output_path"], f"CPU{jobid}")
+    export(out, P, X, logger=logger)
+    stop_logging(logger, handler)
+    print(f"Done. Output: {out}_P.npy / {out}_X.npy")
+
+
+def cmd_mle(args):
+    from metrotrpl_tpu_torch.inference.mle import mle
+    from metrotrpl_tpu_torch.io.logging import stop_logging
+
+    (jobid, sim_info, param_info, MCMC_fields, iniPar, e_data, logger,
+     handler) = _start_mode(args, "MLE")
+    mle(e_data, sim_info, param_info, iniPar, MCMC_fields,
+        f"MLE{jobid}-final.pik", logger, maxiter=args.maxiter,
+        device=args.device)
+    stop_logging(logger, handler)
+    print("Done.")
 
 
 def synthesize_measurements(mpath, ipath, lengths, nx, params, model="std",
@@ -226,22 +286,31 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("mcmc")
-    sp.add_argument("config",
-                    help="MCMC config script path, or a script header "
-                         "resolved as {header}{jobid}.txt")
-    sp.add_argument("--jobid", type=int, default=None,
-                    help="defaults to $SLURM_ARRAY_TASK_ID, else 0")
-    sp.add_argument("--seed", type=int, default=None)
-    sp.add_argument("--verbose", action="store_true")
-    sp.add_argument("--irf-dir", default="IRFs")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device of the walk (default cuda; cpu runs "
-                         "the plain PyTorch solver)")
-    sp.add_argument("--ensembles", type=int, default=1,
-                    help="not yet ported: must be 1")
-    sp.add_argument("--mesh", default=None, help="not yet ported")
-    sp.set_defaults(fn=cmd_mcmc)
+    for name, fn in (("mcmc", cmd_mcmc), ("dense", cmd_dense),
+                     ("mle", cmd_mle)):
+        sp = sub.add_parser(name)
+        sp.add_argument("config",
+                        help="MCMC config script path, or a script header "
+                             "resolved as {header}{jobid}.txt")
+        sp.add_argument("--jobid", type=int, default=None,
+                        help="defaults to $SLURM_ARRAY_TASK_ID, else 0")
+        sp.add_argument("--verbose", action="store_true")
+        sp.add_argument("--irf-dir", default="IRFs")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "plain PyTorch solver)")
+        if name == "mcmc":
+            sp.add_argument("--seed", type=int, default=None)
+            sp.add_argument(
+                "--ensembles", type=int, default=1,
+                help="independent MH replicas fused into one solve batch; "
+                     "replica j gets seed+j and its own CPU{j}-final.pik")
+            sp.add_argument("--mesh", default=None,
+                            help="the sharded multi-device walk: not "
+                                 "ported yet")
+        if name == "mle":
+            sp.add_argument("--maxiter", type=int, default=None)
+        sp.set_defaults(fn=fn)
 
     sp = sub.add_parser("write-example")
     sp.add_argument("out",

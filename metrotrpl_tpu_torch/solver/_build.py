@@ -44,6 +44,12 @@ SOLVE_ENTRY_POINTS = tuple(f"metrotrpl_sdirk_solve_{m}_{d}"
 #: refactor, ni_plateau, stream)
 SOLVE_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _D, _I,
                   _I, _I, _I, _I, _P]
+#: the occupancy query of each entry point's variant: (nx, &blocks per
+#: SM, &threads, &dynamic shared memory bytes)
+OCCUPANCY_ENTRY_POINTS = tuple(n.replace("_solve_", "_occupancy_")
+                               for n in SOLVE_ENTRY_POINTS)
+_IP = ctypes.POINTER(ctypes.c_int)
+OCCUPANCY_ARGTYPES = [_I, _IP, _IP, _IP]
 
 
 def _nvcc():
@@ -76,10 +82,12 @@ class KernelLibrary:
         self.build_seconds = build_seconds  # 0.0 when loaded from cache
         self.ptxas_log = ptxas_log
         self.lib = ctypes.CDLL(str(path))
-        for name in SOLVE_ENTRY_POINTS:
-            fn = getattr(self.lib, name)
-            fn.argtypes = SOLVE_ARGTYPES
-            fn.restype = ctypes.c_int
+        for names, argtypes in ((SOLVE_ENTRY_POINTS, SOLVE_ARGTYPES),
+                                (OCCUPANCY_ENTRY_POINTS, OCCUPANCY_ARGTYPES)):
+            for name in names:
+                fn = getattr(self.lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
 
 
 def build_library():

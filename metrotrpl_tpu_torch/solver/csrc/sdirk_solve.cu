@@ -592,6 +592,41 @@ size_t smem_bytes(int nx, int n_levels) {
   return Sim<S, NC, CPT>::smem_scalars(nx, n_levels) * sizeof(S);
 }
 
+// ---- host side: the variant for a grid, its launch and its occupancy
+// (the CPU build of the tests cuts the source here) ----
+
+// The variant, block shape and dynamic shared memory of an nx-cell grid:
+// up to 128 cells a thread per block row and cell, the factors in shared
+// memory; beyond: two cells per thread up to 256, else up to 8, the
+// factors thread-local.
+template <typename S, int NC>
+struct Variant {
+  using Kern = decltype(&sdirk_solve_kernel<S, NC, 1>);  // one signature
+  int n_levels = 0, cpt, W, threads;
+  size_t smem;
+  Kern kern;
+
+  explicit Variant(int nx) {
+    while ((1 << n_levels) < nx) ++n_levels;
+    cpt = nx <= 128 ? 1 : (nx + 127) / 128;
+    W = ((nx + cpt - 1) / cpt + 31) / 32 * 32;
+    threads = NC * W;
+    smem = cpt == 1   ? smem_bytes<S, NC, 1>(nx, n_levels)
+           : cpt == 2 ? smem_bytes<S, NC, 2>(nx, n_levels)
+                      : smem_bytes<S, NC, 8>(nx, n_levels);
+    kern = cpt == 1   ? sdirk_solve_kernel<S, NC, 1>
+           : cpt == 2 ? sdirk_solve_kernel<S, NC, 2>
+                      : sdirk_solve_kernel<S, NC, 8>;
+  }
+
+  // past 48 KiB the kernel must opt in to its dynamic shared memory
+  cudaError_t opt_in() const {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+};
+
 template <typename S, int NC>
 int launch(const void* dt, const void* y0, const void* par, const void* dx,
            void* pl, void* tr, void* rs, int B, int nx, int n_steps,
@@ -610,37 +645,32 @@ int launch(const void* dt, const void* y0, const void* par, const void* dx,
   sc.gamma = S(gamma);
   Plan plan{n_steps, newton_iters, n_phase1, ramp_block, refactor,
             ni_plateau};
-  int n_levels = 0;
-  while ((1 << n_levels) < nx) ++n_levels;
-  // up to 128 cells: a thread per block row and cell, the factors in
-  // shared memory; beyond: two cells per thread up to 256, else up to 8,
-  // the factors thread-local
-  const int cpt = nx <= 128 ? 1 : (nx + 127) / 128;
-  const int W = ((nx + cpt - 1) / cpt + 31) / 32 * 32;
-  const int threads = NC * W;
-  const size_t smem = cpt == 1   ? smem_bytes<S, NC, 1>(nx, n_levels)
-                      : cpt == 2 ? smem_bytes<S, NC, 2>(nx, n_levels)
-                                 : smem_bytes<S, NC, 8>(nx, n_levels);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const S* a_dt = static_cast<const S*>(dt);
-  const S* a_y0 = static_cast<const S*>(y0);
-  const S* a_par = static_cast<const S*>(par);
-  const S* a_dx = static_cast<const S*>(dx);
-  S* a_pl = static_cast<S*>(pl);
-  S* a_tr = static_cast<S*>(tr);
-  S* a_rs = static_cast<S*>(rs);
-  // the variants share one signature
-  auto kern = cpt == 1   ? sdirk_solve_kernel<S, NC, 1>
-              : cpt == 2 ? sdirk_solve_kernel<S, NC, 2>
-                         : sdirk_solve_kernel<S, NC, 8>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<B, threads, smem, st>>>(a_dt, a_y0, a_par, a_dx, a_pl, a_tr, a_rs,
-                                 nx, n_levels, W, cpt, sc, plan);
+  const Variant<S, NC> v(nx);
+  cudaError_t e = v.opt_in();
+  if (e != cudaSuccess) return (int)e;
+  v.kern<<<B, v.threads, v.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(dt), static_cast<const S*>(y0),
+      static_cast<const S*>(par), static_cast<const S*>(dx),
+      static_cast<S*>(pl), static_cast<S*>(tr), static_cast<S*>(rs), nx,
+      v.n_levels, v.W, v.cpt, sc, plan);
   return (int)cudaGetLastError();
+}
+
+// Blocks of an nx-cell grid's variant that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with the block's
+// threads and dynamic shared memory: a batch of more rows than
+// blocks_per_sm x the SM count runs in several waves.
+template <typename S, int NC>
+int occupancy(int nx, int* blocks_per_sm, int* threads, int* smem) {
+  if (nx < 1 || nx > 1024) return (int)cudaErrorInvalidValue;
+  const Variant<S, NC> v(nx);
+  cudaError_t e = v.opt_in();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, v.kern,
+                                                      v.threads, v.smem);
+  *threads = v.threads;
+  *smem = (int)v.smem;
+  return (int)e;
 }
 
 }  // namespace sdirk
@@ -668,3 +698,16 @@ SDIRK_ENTRY(metrotrpl_sdirk_solve_std_f32, float, 3)
 SDIRK_ENTRY(metrotrpl_sdirk_solve_std_f64, double, 3)
 SDIRK_ENTRY(metrotrpl_sdirk_solve_traps_f32, float, 4)
 SDIRK_ENTRY(metrotrpl_sdirk_solve_traps_f64, double, 4)
+
+// metrotrpl_sdirk_occupancy_{std,traps}_{f32,f64}(nx, &blocks_per_sm,
+// &threads, &smem_bytes): the occupancy of the variant the solve entry
+// point launches for nx cells. Returns a cudaError_t (0 on success).
+#define SDIRK_OCCUPANCY(NAME, S, NC)                                        \
+  extern "C" int NAME(int nx, int* blocks_per_sm, int* threads, int* smem) { \
+    return sdirk::occupancy<S, NC>(nx, blocks_per_sm, threads, smem);       \
+  }
+
+SDIRK_OCCUPANCY(metrotrpl_sdirk_occupancy_std_f32, float, 3)
+SDIRK_OCCUPANCY(metrotrpl_sdirk_occupancy_std_f64, double, 3)
+SDIRK_OCCUPANCY(metrotrpl_sdirk_occupancy_traps_f32, float, 4)
+SDIRK_OCCUPANCY(metrotrpl_sdirk_occupancy_traps_f64, double, 4)

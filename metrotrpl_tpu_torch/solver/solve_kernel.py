@@ -175,6 +175,23 @@ def _launch(params, y0, dts, dx, model, scheme_name, newton_iters,
     return out[0].T, out[1].T, out[2].T
 
 
+def occupancy(model, dtype, nx):
+    """The occupancy of the kernel variant a call on an nx-cell grid
+    launches, from the CUDA occupancy API: dict of blocks_per_sm (blocks
+    one SM holds at once), threads and smem_bytes per block. Needs the
+    card (builds the library)."""
+    lib = kernel_library().lib
+    fn = getattr(lib, f"metrotrpl_sdirk_occupancy_{model}_{_DTYPE_TAG[dtype]}")
+    blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(int(nx), ctypes.byref(blocks), ctypes.byref(threads),
+            ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"sdirk_solve occupancy query failed: cudaError "
+                           f"{rc}")
+    return {"blocks_per_sm": blocks.value, "threads": threads.value,
+            "smem_bytes": smem.value}
+
+
 # ---- the work of one call, for the kernel's bound ----
 #
 # FLOPs (+, -, *, /; negations and comparisons not counted) that one

@@ -150,15 +150,19 @@ def test_checkpoints_cross_both_ways(tmp_path):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
-    """make_eval_logll, build_mh_kernel, run_mh, solve_single and metro
-    take device="cuda" by default; without a card each raises instead of
-    running on the CPU."""
+    """make_eval_logll, build_mh_kernel, run_mh, run_mh_fused,
+    solve_single, metro, the dense sampler and the MLE take device="cuda"
+    by default; without a card each raises instead of running on the
+    CPU."""
+    from metrotrpl_tpu_torch.inference.dense import bayes
     from metrotrpl_tpu_torch.inference.likelihood import make_eval_logll
     from metrotrpl_tpu_torch.inference.metropolis import (
         build_mh_kernel,
         metro,
         run_mh,
+        run_mh_fused,
     )
+    from metrotrpl_tpu_torch.inference.mle import mle
     from metrotrpl_tpu_torch.solver.forward import solve_single
 
     calls = {
@@ -166,6 +170,9 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
         build_mh_kernel: lambda: build_mh_kernel(None, None, [1.0], [0.1],
                                                  10, False),
         run_mh: lambda: run_mh(None, None, None, None),
+        run_mh_fused: lambda: run_mh_fused([None], None, None, None, [1]),
+        bayes: lambda: bayes(None, None, None, None, None, {}, None),
+        mle: lambda: mle(None, None, None, None, {}, None, None),
         solve_single: lambda: solve_single(None, {}, 311.0, 8, [0.0, 1.0]),
         metro: lambda: metro(None, None, None, {}, None),
     }

@@ -193,18 +193,39 @@ def test_cuda_kernel_matches_plain_across_widths(cuda_device, model, dtype,
 @pytest.mark.parametrize("model", ["std", "traps"])
 def test_cuda_kernel_row_independent_of_batch(cuda_device, model, dtype):
     """A row's outputs do not depend on the batch it is solved in: the
-    first row alone, in 9 rows and in 48 rows, bit for bit (one block per
+    first row alone, and the first 48 rows in 9, 48 and 384 rows, bit for
+    bit, on a chord plan as the walk's fast plan is. 384 rows (8 fused
+    ensembles x 8 chains x 6 curves) pass the blocks the card holds at
+    once in both dtypes, so later waves run the same rows (one block per
     row, nothing shared between blocks)."""
-    p, y0, dts, dx = _kernel_inputs(48, 128, 12, dtype, cuda_device,
-                                    model=model)
-    outs = []
-    for B in (1, 9, 48):
+    p, y0, dts, dx = _kernel_inputs(384, 128, 16, dtype, cuda_device,
+                                    n_ramp=8, model=model)
+    kw = dict(model=model, refactor_every=4, n_ramp=8)
+    occ = sk.occupancy(model, dtype, 128)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 384 > occ["blocks_per_sm"] * n_sm
+    outs = {}
+    for B in (1, 9, 48, 384):
         sub = (type(p)(*(a[:B] for a in p)), y0[:B], dts[:, :B], dx[:B])
-        outs.append([a[:, 0].cpu() for a in
-                     sk.integrate_observables_cuda(*sub, model=model)])
-    for other in outs[1:]:
-        for a, b in zip(outs[0], other):
-            assert torch.equal(a, b)
+        outs[B] = [a[:, :48].cpu() for a in
+                   sk.integrate_observables_cuda(*sub, **kw)]
+    for B in (9, 48, 384):
+        for a, b in zip(outs[1], outs[B]):
+            assert torch.equal(a[:, :1], b[:, :1])
+        for a, b in zip(outs[48], outs[B]):
+            assert torch.equal(a[:, :min(B, 48)], b[:, :min(B, 48)])
+
+
+@pytest.mark.cuda
+def test_cuda_occupancy_of_each_instantiation(cuda_device):
+    """The occupancy query answers for every entry point at the flagship
+    width with the launch's block shape (a thread per block row of a
+    cell) and at least one resident block per SM."""
+    for model, nc in (("std", 3), ("traps", 4)):
+        for dtype in (torch.float32, torch.float64):
+            occ = sk.occupancy(model, dtype, 128)
+            assert occ["threads"] == nc * 128
+            assert occ["blocks_per_sm"] >= 1 and occ["smem_bytes"] > 0
 
 
 @pytest.mark.cuda
@@ -862,7 +883,7 @@ def kernel_on_cpu(tmp_path_factory):
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("kernel_cpu")
     src = (CSRC / "sdirk_solve.cu").read_text()
-    src = src[:src.index("template <typename S, int NC>\nint launch(")]
+    src = src[:src.index("// ---- host side")]
     src = src.replace("#include <cuda_runtime.h>", '#include "emu_rt.h"')
     src = src.replace(
         "extern __shared__ __align__(16) unsigned char smem_raw[];",

@@ -12,22 +12,10 @@ import textwrap
 import numpy as np
 import pytest
 import torch
-from torch_parity import REPO, param_info, synth_config
+from torch_parity import REPO, walk_setup
 
 from metrotrpl_tpu.io.ensemble import load_checkpoint
-from metrotrpl_tpu.workloads import STAUB_PRIOR
 
-
-def _setup(out, num_iters, **over):
-    sim_info, mcmc, e_data, iniPar = synth_config(
-        nx=8, lengths=(311.0,), nt=6, t_end=50.0, model_uncertainty=0.05)
-    mcmc.update({"init_cond_path": "x", "measurement_path": "x",
-                 "output_path": str(out), "num_iters": num_iters,
-                 "solver": ("sdirk",), "hmax": 16.0, "hard_bounds": 1,
-                 "checkpoint_freq": 3, "parallel_tempering": [1.0, 4.0],
-                 "temper_freq": 2, "load_checkpoint": None, **over})
-    pi = param_info(trial_move=0.02, prior=dict(STAUB_PRIOR))
-    return sim_info, iniPar, e_data, mcmc, pi
 
 
 def test_metro_pickle_loads_with_reference_layout(tmp_path):
@@ -38,10 +26,10 @@ def test_metro_pickle_loads_with_reference_layout(tmp_path):
     from metrotrpl_tpu.inference import metro as jmetro
     from metrotrpl_tpu_torch.inference.metropolis import metro as tmetro
 
-    sim_info, iniPar, e_data, mcmc, pi = _setup(tmp_path / "j", 6)
+    sim_info, iniPar, e_data, mcmc, pi = walk_setup(tmp_path / "j", 6)
     jmetro(sim_info, iniPar, e_data, dict(mcmc), pi, export_path="f.pik",
            seed=3, trap_signals=False)
-    sim_info, iniPar, e_data, mcmc, pi = _setup(tmp_path / "t", 6)
+    sim_info, iniPar, e_data, mcmc, pi = walk_setup(tmp_path / "t", 6)
     tmetro(sim_info, iniPar, e_data, dict(mcmc), pi, export_path="f.pik",
            seed=3, device="cpu", trap_signals=False)
     ej = load_checkpoint(str(tmp_path / "j" / "f.pik"))
@@ -66,13 +54,13 @@ def test_metro_resume_repeats_uninterrupted_walk(tmp_path):
     restored."""
     from metrotrpl_tpu_torch.inference.metropolis import metro as tmetro
 
-    args = _setup(tmp_path / "a", 6)
+    args = walk_setup(tmp_path / "a", 6)
     a = tmetro(*args, export_path="f.pik", seed=9, device="cpu",
                trap_signals=False)
-    args = _setup(tmp_path / "b", 3)
+    args = walk_setup(tmp_path / "b", 3)
     tmetro(*args, export_path="c.pik", seed=9, device="cpu",
            trap_signals=False)
-    args = _setup(tmp_path / "b", 6, load_checkpoint="c.pik")
+    args = walk_setup(tmp_path / "b", 6, load_checkpoint="c.pik")
     b = tmetro(*args, export_path="f.pik", seed=9, device="cpu",
                trap_signals=False)
     np.testing.assert_array_equal(a.H.states, b.H.states)
@@ -99,6 +87,8 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
             importlib.import_module(n)
         assert "metrotrpl_tpu_torch.solver.solve_kernel" in names
         assert "metrotrpl_tpu_torch.config.validate" in names
+        assert "metrotrpl_tpu_torch.inference.dense" in names
+        assert "metrotrpl_tpu_torch.inference.mle" in names
         import chip_smoke
         from metrotrpl_tpu_torch.cli import main, write_example_config
         d = {str(tmp_path)!r}

@@ -91,6 +91,24 @@ def synth_config(nx=16, lengths=(311.0, 2000.0), nt=11, t_end=200.0,
     return sim_info, mcmc, (times, vals, uncs), iniPar
 
 
+def walk_setup(out, num_iters, **over):
+    """A tiny walk config (nx=8, one 311 nm TRPL curve of 6 points, sdirk
+    fast mode, hard bounds, 2 tempered chains swapping every 2nd
+    iteration, checkpoints every 3) writing to ``out``: (sim_info,
+    iniPar, e_data, MCMC_fields, param_info), metro's argument order."""
+    from metrotrpl_tpu.workloads import STAUB_PRIOR
+
+    sim_info, mcmc, e_data, iniPar = synth_config(
+        nx=8, lengths=(311.0,), nt=6, t_end=50.0, model_uncertainty=0.05)
+    mcmc.update({"init_cond_path": "x", "measurement_path": "x",
+                 "output_path": str(out), "num_iters": num_iters,
+                 "solver": ("sdirk",), "hmax": 16.0, "hard_bounds": 1,
+                 "checkpoint_freq": 3, "parallel_tempering": [1.0, 4.0],
+                 "temper_freq": 2, "load_checkpoint": None, **over})
+    pi = param_info(trial_move=0.02, prior=dict(STAUB_PRIOR))
+    return sim_info, iniPar, e_data, mcmc, pi
+
+
 def staub_states(pi, n, seed, spread=0.1):
     """(n, P) entry-unit states scattered +-spread dex around the truth on
     the active parameters."""
