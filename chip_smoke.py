@@ -59,8 +59,32 @@ Phases, each of which raises on failure:
     144 on the rung plan, beside the resident blocks per SM that the CUDA
     occupancy API gives for the launch's variant.
 
-Launch counts are zeroed just before each main path (phases 4, 7, 8, 10
-and 11) and read just after it. The last three lines of standard output are the
+13. The reference-pinned likelihood fixtures (reference
+    Tests/test_eval_trial_move.py) at nx=128: float64 evaluations (the std
+    double kernel, 1001 output knots) held to the pinned constants at
+    decimal=0, the force_min_y fixture to its monotonicity; float32 values
+    printed beside them without a limit.
+14. The real measured staub data (Inputs/real_staub_*.csv, density-mode
+    profiles, 3 curves to 4248 ns): `write-real-example --fast` then `cli
+    mcmc --device cuda`, 100 iterations x 8 chains; the same with --irf
+    (the 745 nm IRF); --irf --ensembles 8 for 50 iterations. Walker-steps/s,
+    launches and rung rows per iteration, peak memory; the IRF compare
+    pipeline's and its grouped conv1d's CUDA-event times at 8 and 64
+    states, the evaluation with and without the IRF, and one dense chunk
+    of 512 prior samples on the IRF plan with its peak memory. Each
+    checkpoint must load, each cold chain be finite, the std float kernel
+    launch at least once per iteration.
+15. The NN surrogate walk: seeded weights saved to chip_smoke_out/nn/,
+    data from the surrogate at the staub truth, metro on the card for 200
+    iterations: no kernel launch, a finite cold chain, and the card's
+    eval_logll equal to the same plan's CPU one within 1e-9 (float64) and
+    1e-4 (float32, whose own rounding against float64 is ~3e-5 here) of
+    the largest |ll|.
+16. The pa toy walk: `write-pa-example` then `cli mcmc --device cuda`,
+    500 iterations: finite.
+
+Launch counts are zeroed just before each main path (phases 4, 7, 8, 10,
+11 and 13-16) and read just after it. The last three lines of standard output are the
 kernels JSON object (one entry per instantiation, with its launches on
 its main path, its error against the plain version, CUDA-event times of
 kernel and plain version, and its bound: the larger of the FLOPs it needs
@@ -87,6 +111,10 @@ N_ITERS_FUSED = 100    # its iterations
 N_ITERS_PAIR = 20      # fused against separate walks
 N_DENSE = 2048         # dense samples
 MLE_MAXITER = 40       # Nelder-Mead iterations
+N_ITERS_REAL = 100     # real-data walks, with and without the IRF
+N_ITERS_REAL_E8 = 50   # the real-data IRF walk at E_FUSED ensembles
+N_ITERS_NN = 200       # NN surrogate walk
+N_ITERS_PA = 500       # pa toy walk
 
 #: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit):
 #: non-tensor-core FLOP/s per scalar type, and the HBM rate in bytes/s
@@ -136,6 +164,412 @@ def solve_bound(dtype, B, nx, fp_x):
     t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem
             else "bytes", flops, nbytes)
+
+
+#: the reference-pinned likelihood fixtures (reference
+#: Tests/test_eval_trial_move.py, as tests/test_reference_parity.py:64-186
+#: states them): a radiative-only 2000 nm material with uniform density
+#: profiles, data of 23 (TRPL) or -2 (TRTS) decades, u = 1e-99, 1001
+#: output knots over [0, 100] ns
+PIN_NAMES = ["n0", "p0", "mu_n", "mu_p", "ks", "Cn", "Cp", "Tm", "Sf", "Sb",
+             "tauN", "tauP", "eps", "m"]
+PIN_UC = {"n0": 1e-21, "p0": 1e-21, "mu_n": 1e5, "mu_p": 1e5, "ks": 1e12,
+          "Sf": 1e-2, "Sb": 1e-2}
+PIN_BASE = {"n0": 0, "p0": 0, "mu_n": 0, "mu_p": 0, "ks": 1e-11, "Sf": 0,
+            "Sb": 0, "Cn": 0, "Cp": 0, "Tm": 300, "tauN": 1e99,
+            "tauP": 1e99, "eps": 10, "m": 1}
+
+
+def pinned_fixtures(nx):
+    """name -> (sim_info, parameter names, states, MCMC_fields, e_data,
+    iniPar, pinned per-measurement values or None, pinned sum or None);
+    force_min_y's two states must order its likelihoods instead."""
+    import numpy as np
+
+    def grid(types):
+        return {"lengths": [2000] * len(types), "nx": [nx] * len(types),
+                "meas_types": list(types), "num_meas": len(types)}
+
+    def data(nt, t_end, vals):
+        t = np.linspace(0, t_end, nt + 1)
+        return ([t] * len(vals), [np.full(nt + 1, v) for v in vals],
+                [np.full(nt + 1, 1e-99)] * len(vals))
+
+    mc = {"solver": ("solveivp",), "model": "std", "ini_mode": "density",
+          "hmax": 4, "log_y": 1, "model_uncertainty": {"TRPL": 1}}
+    prof = np.array([1e15 * np.ones(nx), 1e16 * np.ones(nx)])
+    two = (-59340.105083, -32560.139058)
+    scaled = dict(PIN_BASE, ks=1e-20, _s0=2e-17 ** -1, _s1=2e-15 ** -1)
+    mixed = dict(PIN_BASE, mu_n=0.01, mu_p=0.01)
+    fmy = dict(PIN_BASE, n0=1e8, p0=1e17, ks=1e-13, tauN=4, tauP=4)
+    t = np.linspace(0, 100, 1001)
+    return {
+        "two_trpl": (grid(["TRPL"] * 2), PIN_NAMES, [PIN_BASE], mc,
+                     data(1000, 100, [23, 23]), prof, two, sum(two)),
+        "time_cutoff": (grid(["TRPL"] * 2), PIN_NAMES, [PIN_BASE], mc,
+                        data(500, 50, [23, 23]), prof, None, -45982),
+        "scale_factors": (grid(["TRPL"] * 2), PIN_NAMES + ["_s0", "_s1"],
+                          [scaled],
+                          dict(mc, scale_factor=[0.02, [0, 1], None, [1, 1]]),
+                          data(1000, 100, [23, 23]), prof, None, 0),
+        "mixed_trpl_trts": (grid(["TRPL", "TRTS"]), PIN_NAMES, [mixed],
+                            dict(mc, model_uncertainty={"TRPL": 1,
+                                                        "TRTS": 10}),
+                            data(1000, 100, [23, -2]), prof[[0, 0]],
+                            (two[0], -517.98), two[0] - 517.98),
+        "force_min_y": (grid(["TRPL"]), PIN_NAMES,
+                        [fmy, dict(fmy, tauN=4.01, tauP=4.01)],
+                        dict(mc, force_min_y=1),
+                        ([t], [np.log10(2e14 * np.exp(-t / 8))],
+                         [np.full(1001, 1e-99)]), prof[:1], None, None),
+    }
+
+
+def phase13_pinned(card, dev):
+    """The pinned fixtures on the card at nx=128: float64 evaluations
+    (the std double kernel) held to the reference's constants at
+    decimal=0 and force_min_y to its monotonicity; float32 values printed
+    beside them without a limit. Returns the phase's launches."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch.inference.likelihood import (
+        build_likelihood_plan,
+        make_eval_logll,
+    )
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    f32, f64 = torch.float32, torch.float64
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for name, (sim_info, names, states, mcmc, e_data, ini, pinned,
+               total) in pinned_fixtures(128).items():
+        pi = {"names": names, "unit_conversions": PIN_UC,
+              "active": {n: 0 for n in names}, "init_guess": states[0],
+              "trial_move": {n: 0 for n in names}}
+        plan = build_likelihood_plan(sim_info, pi, mcmc, e_data, ini)
+        st = np.array([[s[n] for n in names] for s in states])
+        pm = {}
+        for dt in (f64, f32):
+            out = make_eval_logll(plan, dtype=dt, device=dev)(
+                torch.as_tensor(st, dtype=dt, device=dev),
+                torch.ones(1, dtype=dt, device=dev))
+            pm[dt] = out["per_meas"][..., 0].double().cpu().numpy()
+        a = pm[f64]
+        print(f"phase 13 {name}: n_steps {plan.fwd[0][1].n_steps}, "
+              f"per_meas float64 {a.tolist()}, float32 "
+              f"{pm[f32].tolist()} (no limit), pinned "
+              f"{pinned if pinned is not None else total}")
+        if not np.isfinite(a).all():
+            raise RuntimeError(f"phase 13 {name}: a float64 value is not "
+                               "finite")
+        if pinned is not None and np.abs(a[0] - pinned).max() >= 1.5:
+            raise RuntimeError(f"phase 13 {name}: {a[0]} not {pinned} at "
+                               "decimal=0")
+        if total is not None and abs(a[0].sum() - total) >= 1.5:
+            raise RuntimeError(f"phase 13 {name}: sum {a[0].sum()} not "
+                               f"{total} at decimal=0")
+        if name == "force_min_y" and not a[1, 0] > a[0, 0]:
+            raise RuntimeError("phase 13 force_min_y: the move toward the "
+                               "data's decay did not improve the likelihood")
+    torch.cuda.synchronize()
+    launches = dict(sk.LAUNCHES)
+    print(f"phase 13: 5 pinned fixtures x float64 and float32 in "
+          f"{time.perf_counter() - t0:.2f} s on {card}; launches std f64 "
+          f"{launches[('std', f64)]}, f32 {launches[('std', f32)]}")
+    if launches[("std", f64)] < 5:
+        raise RuntimeError("phase 13: the std double kernel did not run "
+                           "every fixture")
+    return launches
+
+
+def phase14_real(card, dev, work, cli):
+    """The real measured staub data: `write-real-example --fast` (and
+    --irf) then `cli mcmc --device cuda`, 100 iterations x 8 chains each,
+    and --irf --ensembles 8 for 50; the IRF compare pipeline's time and
+    memory. Returns ({walk label: launches}, the IRF plan, its
+    param_info)."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch.cli import _load_common
+    from metrotrpl_tpu_torch.inference.likelihood import (
+        _make_compare_pipeline,
+        make_eval_logll,
+    )
+    from metrotrpl_tpu_torch.inference.metropolis import (
+        load_checkpoint,
+        plans_from_config,
+    )
+    from metrotrpl_tpu_torch.ops.convolve import (
+        convolve_moments,
+        load_irf_tables,
+    )
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    f32, f64 = torch.float32, torch.float64
+    inputs, irf_dir = REPO / "Inputs", str(REPO / "IRFs")
+    walks = {}
+    for label, irf, n_iters, E in (("real", False, N_ITERS_REAL, 1),
+                                   ("real_irf", True, N_ITERS_REAL, 1),
+                                   ("real_irf_e8", True, N_ITERS_REAL_E8,
+                                    E_FUSED)):
+        cfg = work / f"{label}.txt"
+        cli(["write-real-example", str(cfg), "--fast", "--num-iters",
+             str(n_iters), "--init-cond", str(inputs / "real_staub_input.csv"),
+             "--measurement",
+             str(inputs / "real_staub_aug_corr_renoised.csv"), "--output",
+             str(work / label)] + (["--irf"] if irf else []))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli(["mcmc", str(cfg), "--device", "cuda", "--irf-dir", irf_dir,
+             "--ensembles", str(E)])
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        launches, rows = dict(sk.LAUNCHES), dict(sk.ROWS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        enss = [load_checkpoint(str(work / label / f"CPU{j}-final.pik"))
+                for j in range(E)]
+        K = enss[0].H.accept.shape[0]
+        acc = [float(e.H.accept[0, 1:].mean()) for e in enss]
+        n32, n64 = launches[("std", f32)], launches[("std", f64)]
+        print(f"phase 14 {label}: {E} x {n_iters} iterations x {K} chains "
+              f"in {walk_s:.2f} s (plan build and first evaluation "
+              f"included): {n_iters * K * E / walk_s:.1f} walker-steps/s on "
+              f"{card}; launches per iteration std f32 {n32 / n_iters:.2f}, "
+              f"f64 {n64 / n_iters:.2f}; rung rows per iteration "
+              f"{rows[('std', f64)] / n_iters:.2f} of {K * E * 3}; peak "
+              f"memory {peak / 2**20:.1f} MiB; cold-chain acceptance "
+              f"{np.round(acc, 3).tolist()}")
+        for j, e in enumerate(enss):
+            if (e.latest_iter != n_iters
+                    or not np.isfinite(e.H.loglikelihood[0]).all()):
+                raise RuntimeError(f"phase 14 {label}: replica {j} holds "
+                                   f"{e.latest_iter} iterations or a "
+                                   "non-finite cold chain")
+        if n32 < n_iters:
+            raise RuntimeError(f"phase 14 {label}: the std float kernel "
+                               f"launched {n32} < {n_iters} times")
+        walks[label] = launches
+
+    # the compare pipeline and the evaluation with and without the IRF
+    plans = {}
+    for label in ("real", "real_irf"):
+        sim_info, pi, _f, mcmc, ini, e_data = _load_common(
+            str(work / f"{label}.txt"))
+        tables = (load_irf_tables(mcmc["irf_convolution"], irf_dir)
+                  if mcmc.get("irf_convolution") else {})
+        plans[label], _ = plans_from_config(sim_info, pi, dict(mcmc),
+                                            e_data, ini, irf_tables=tables)
+    plan = plans["real_irf"]
+    fp, fp_hi = plan.fwd[0][1], plan.fwd[0][2]
+    M, R = plan.n_meas, plan.res_t.shape[1]
+    print(f"phase 14: real plan nx={fp.nx}, n_steps {fp.n_steps} (rung "
+          f"{fp_hi.n_steps}), {plan.exp_times.shape[1]} data points to "
+          f"{plan.exp_times.max():.1f} ns, IRF resample R={R}")
+    temps = torch.as_tensor(np.asarray(mcmc["parallel_tempering"]),
+                            dtype=f32, device=dev)
+    compare = _make_compare_pipeline(plan, f32, dev)
+    names = list(plan.param_names)
+    base = np.array([pi["init_guess"][n] for n in names])
+    active = np.array([bool(pi["active"][n]) for n in names])
+    rng = np.random.default_rng(3)
+    cost = {}
+    for K in (8, 64):
+        sol = torch.as_tensor(10.0 ** plan.exp_vals, dtype=f32,
+                              device=dev).repeat(K, 1)
+        shift = torch.zeros(K * M, dtype=f32, device=dev)
+        res = torch.rand((K * M, R), dtype=f32, device=dev)
+        tabs = torch.as_tensor(plan.irf_tables, dtype=f32,
+                               device=dev).repeat(K, 1, 1)
+        st = torch.as_tensor(base[None] * 10.0 ** (rng.uniform(
+            -0.1, 0.1, (K, len(names))) * active[None]), dtype=f32,
+            device=dev)
+        evs = {lb: make_eval_logll(pl, dtype=f32, device=dev)
+               for lb, pl in plans.items()}
+        cost[K] = dict(
+            compare_ms=cuda_ms(lambda: compare(sol, shift, temps), 10),
+            conv_ms=cuda_ms(lambda: convolve_moments(res, tabs), 10),
+            eval_irf_ms=cuda_ms(lambda: evs["real_irf"](st, temps), 5),
+            eval_ms=cuda_ms(lambda: evs["real"](st, temps), 5))
+    print("phase 14 IRF cost: " + "; ".join(
+        f"K={K} ({K * M} rows): compare pipeline {c['compare_ms']:.3f} ms, "
+        f"of it the 3 grouped conv1d {c['conv_ms']:.3f} ms; evaluation "
+        f"with the IRF {c['eval_irf_ms']:.3f} ms, without "
+        f"{c['eval_ms']:.3f} ms" for K, c in cost.items()) + f" on {card}")
+
+    return walks, plan, pi
+
+
+def dense_chunk_on_irf_plan(card, dev, plan, pi):
+    """Time and peak memory of one dense chunk (512 prior samples) on
+    the real-data IRF plan: the largest compare step the port runs."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch.inference.dense import random_grid
+    from metrotrpl_tpu_torch.inference.likelihood import make_eval_logll
+
+    f32 = torch.float32
+    names = list(plan.param_names)
+    lo = np.array([pi["prior_dist"][n][0] if pi["active"][n]
+                   else pi["init_guess"][n] for n in names])
+    hi = np.array([pi["prior_dist"][n][1] if pi["active"][n]
+                   else pi["init_guess"][n] for n in names])
+    X = random_grid(lo, hi, [pi["do_log"][n] for n in names], 512,
+                    np.random.default_rng(0))
+    xs = torch.as_tensor(X, dtype=f32, device=dev)
+    one = torch.ones(1, dtype=f32, device=dev)
+    ev = make_eval_logll(plan, dtype=f32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    chunk_ms = cuda_ms(lambda: ev(xs, one), 2)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"phase 14: dense chunk of 512 samples x {plan.n_meas} curves on "
+          f"the IRF plan: {chunk_ms:.3f} ms, peak memory "
+          f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held, "
+          f"of {total / 2**30:.1f} GiB, on {card}")
+
+
+def phase15_nn(card, dev, work):
+    """The NN surrogate walk: seeded weights saved to .npz, data made from
+    the surrogate at the staub truth, metro on the card for 200
+    iterations with no kernel launch; the card's evaluation against the
+    same plan's CPU one at float64 and float32. Returns the walk's
+    launches."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch.inference.likelihood import (
+        build_likelihood_plan,
+        make_eval_logll,
+    )
+    from metrotrpl_tpu_torch.inference.metropolis import metro
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+    from metrotrpl_tpu_torch.surrogate import NeuralNetwork
+    from metrotrpl_tpu_torch.workloads import (
+        STAUB_NAMES,
+        STAUB_TRUE,
+        staub_param_info,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    nn_dir = work / "nn"
+    nn_dir.mkdir()
+    rng = np.random.default_rng(1)
+    net = NeuralNetwork()
+    net.set_params([(rng.standard_normal((14, 8)) * 0.3,
+                     rng.standard_normal(8) * 0.1),
+                    (rng.standard_normal((8, 4)) * 0.3,
+                     rng.standard_normal(4) * 0.1)])
+    scales = np.array([np.zeros(14), np.ones(14) * 20, np.zeros(4),
+                       np.ones(4)], dtype=object)
+    net.set_scales(scales)
+    wpath, spath = str(nn_dir / "w.npz"), str(nn_dir / "s.npy")
+    net.save_npz(wpath)
+    np.save(spath, scales, allow_pickle=True)
+    t = np.linspace(0, 100, 41)
+    feats = np.array([[STAUB_TRUE[n] for n in
+                       ("p0", "mu_n", "mu_p", "ks", "Cn", "Cp", "Sf", "Sb",
+                        "tauN", "tauP")]
+                      + [1 / STAUB_TRUE["eps"], 2.12e11, 6e4, 311.0]])
+    e_data = ([t], [np.log10(net.predict(t, feats).numpy())],
+              [np.full(len(t), 0.05)])
+    sim_info = {"lengths": [311.0], "nx": [128], "meas_types": ["TRPL"],
+                "num_meas": 1}
+    pi = staub_param_info()
+    ini = np.array([[2.12e11, 6e4, 1]])
+    mcmc = {"init_cond_path": "x", "measurement_path": "x",
+            "output_path": str(nn_dir / "out"), "ini_mode": "fluence",
+            "num_iters": N_ITERS_NN, "solver": ("NN", wpath, spath),
+            "model": "std", "model_uncertainty": 1, "log_y": 1,
+            "hard_bounds": 1, "checkpoint_freq": N_ITERS_NN,
+            "parallel_tempering": [1., 2., 4., 8., 16., 32., 64., 128.],
+            "temper_freq": 10, "load_checkpoint": None}
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ens = metro(sim_info, ini, e_data, dict(mcmc), pi, device="cuda",
+                export_path="nn.pik", seed=5, trap_signals=False)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    H = ens.H
+    K = H.accept.shape[0]
+    print(f"phase 15: NN walk, {N_ITERS_NN} iterations x {K} chains in "
+          f"{walk_s:.2f} s: {N_ITERS_NN * K / walk_s:.1f} walker-steps/s on "
+          f"{card}; cold-chain acceptance {H.accept[0, 1:].mean():.3f}; "
+          f"kernel launches {sum(launches.values())}")
+    if sum(launches.values()) or not np.isfinite(H.loglikelihood[0]).all():
+        raise RuntimeError("phase 15: the NN walk launched a solve kernel or "
+                           "its cold chain is not finite")
+    plan = build_likelihood_plan(sim_info, pi, mcmc, e_data, ini)
+    names = list(STAUB_NAMES)
+    base = np.array([STAUB_TRUE[n] for n in names])
+    active = np.array([bool(pi["active"][n]) for n in names])
+    st = base[None] * 10.0 ** (np.random.default_rng(2).uniform(
+        -0.1, 0.1, (8, len(names))) * active[None])
+    temps = np.asarray(mcmc["parallel_tempering"])
+    cpu = torch.device("cpu")
+    pm = {(d.type, dt): make_eval_logll(plan, dtype=dt, device=d)(
+        torch.as_tensor(st, dtype=dt, device=d),
+        torch.as_tensor(temps, dtype=dt, device=d))["per_meas"].cpu(
+        ).double().numpy() for d in (dev, cpu) for dt in (f32, f64)}
+    fin = np.isfinite(pm[("cpu", f64)])
+
+    def rel(a, b):
+        return np.abs(a[fin] - b[fin]).max() / np.abs(b[fin]).max()
+
+    # float32 carries ~3e-5 of rounding against float64 on this curve
+    # (exp of rate * t ~ -76 and log10 of values down to 1e-33), on either
+    # device, so the float32 limit sits above it; float64 must agree
+    errs = {dt: rel(pm[(dev.type, dt)], pm[("cpu", dt)]) for dt in (f32, f64)}
+    floor = rel(pm[("cpu", f32)], pm[("cpu", f64)])
+    limits = {f32: 1e-4, f64: 1e-9}
+    print(f"phase 15: NN eval_logll card vs CPU, 8 states x 8 temperatures "
+          f"(max |diff| / max |ll|): float64 {errs[f64]:.3e} (limit 1e-9), "
+          f"float32 {errs[f32]:.3e} (limit 1e-4; float32 against float64 "
+          f"on the CPU: {floor:.3e}); finite {int(fin.sum())} of {fin.size}")
+    if (fin.sum() == 0 or any(
+            not np.array_equal(np.isfinite(a), fin) for a in pm.values())
+            or any(errs[dt] > limits[dt] for dt in limits)):
+        raise RuntimeError("phase 15: the card's NN evaluation differs from "
+                           "the CPU's")
+    return launches
+
+
+def phase16_pa(card, work, cli):
+    """The pa toy walk: `write-pa-example` then `cli mcmc --device cuda`
+    for 500 iterations. Returns the walk's launches."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch.inference.metropolis import load_checkpoint
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    pa = work / "pa"
+    pa.mkdir()
+    cli(["write-pa-example", str(pa / "pa.txt"), "--num-iters",
+         str(N_ITERS_PA), "--init-cond", str(pa / "pa_ic.csv"),
+         "--measurement", str(pa / "pa_data.csv"), "--output",
+         str(pa / "out")])
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli(["mcmc", str(pa / "pa.txt"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    H = load_checkpoint(str(pa / "out" / "CPU0-final.pik")).H
+    K = H.accept.shape[0]
+    print(f"phase 16: pa walk, {N_ITERS_PA} iterations x {K} chains in "
+          f"{walk_s:.2f} s: {N_ITERS_PA * K / walk_s:.1f} walker-steps/s on "
+          f"{card}; acceptance per chain "
+          f"{np.round(H.accept[:, 1:].mean(axis=1), 3).tolist()}, swaps "
+          f"accepted {H.swap_accept.tolist()}; kernel launches "
+          f"{sum(launches.values())}")
+    if (not np.isfinite(H.loglikelihood).all()
+            or not np.isfinite(H.states).all()
+            or H.accept.shape[1] != N_ITERS_PA):
+        raise RuntimeError("phase 16: the pa walk is not finite or short")
+    return launches
 
 
 def main():
@@ -602,6 +1036,13 @@ def main():
     batch_times(plan, param_info, STAUB_TRUE)
     batch_times(plan_t, param_info_t, truth_t)
 
+    # ---- phases 13-16: the pinned fixtures, the real data, NN and pa ----
+    launches_pin = phase13_pinned(card, dev)
+    launches_real, plan_irf, pi_irf = phase14_real(card, dev, work, cli)
+    launches_nn = phase15_nn(card, dev, work)
+    launches_pa = phase16_pa(card, work, cli)
+    dense_chunk_on_irf_plan(card, dev, plan_irf, pi_irf)
+
     # one entry per instantiation; launches are each model's main-path
     # counts; max_abs_err is in decades of the observables
     launch_of = {"std": launches_std, "traps": launches_traps}
@@ -613,6 +1054,11 @@ def main():
         "launches_fused_e8": launches_e8[(model, dtype)],
         "launches_dense": launches_dense[(model, dtype)],
         "launches_mle": launches_mle[(model, dtype)],
+        "launches_pinned": launches_pin[(model, dtype)],
+        **{f"launches_{lb}": ln[(model, dtype)]
+           for lb, ln in launches_real.items()},
+        "launches_nn": launches_nn[(model, dtype)],
+        "launches_pa": launches_pa[(model, dtype)],
         "ms_by_batch": by_batch[f"{model}_{dl}"]["ms"],
         "blocks_per_sm": by_batch[f"{model}_{dl}"]["blocks_per_sm"],
         **results[f"{model}_{dl}"],

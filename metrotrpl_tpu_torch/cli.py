@@ -4,6 +4,10 @@
     python -m metrotrpl_tpu_torch.cli dense <config.txt>
     python -m metrotrpl_tpu_torch.cli mle <config.txt> [--maxiter N]
     python -m metrotrpl_tpu_torch.cli write-example <out.txt> [--fast]
+    python -m metrotrpl_tpu_torch.cli write-real-example <out.txt> [--fast]
+                                                          [--irf]
+    python -m metrotrpl_tpu_torch.cli write-pa-example <out.txt>
+    python -m metrotrpl_tpu_torch.cli convert-config <src> <dst>
 
 The inference commands take ``--device`` (default cuda) and read the
 reference config-script format with the port's ``config`` package.
@@ -13,7 +17,12 @@ path; ``dense`` writes ``CPU{jobid}_P.npy`` / ``_X.npy``; ``mle`` writes
 example config, as ``metrotrpl_tpu.cli write-example`` does, and
 synthesizes its data with the port's float64 LSODA oracle.
 :func:`write_example_config` also writes the same example under the
-shallow-trap model.
+shallow-trap model. ``write-real-example`` writes the config that fits
+the measured staub MAPI data in ``Inputs/`` (density-mode initial
+profiles, optionally the 745 nm IRF), ``write-pa-example`` the toy
+``pa`` config and its two data files, and ``convert-config`` converts
+between the text and the TOML format; each writes the file the JAX
+package's command of the same name writes.
 """
 
 import argparse
@@ -163,6 +172,42 @@ def synthesize_measurements(mpath, ipath, lengths, nx, params, model="std",
     np.savetxt(mpath, np.concatenate(rows), delimiter=",")
 
 
+#: the priors of ``write-example`` (reference MCMC_script_writer.py)
+_EXAMPLE_PRIOR = {"n0": (0, np.inf), "p0": (1e14, 1e16),
+                  "mu_n": (1e0, 1e2), "mu_p": (1e0, 1e2),
+                  "ks": (1e-11, 1e-9), "Cn": (1e-29, 1e-27),
+                  "Cp": (1e-29, 1e-27), "Sf": (1e-1, 1e4),
+                  "Sb": (1e-1, 1e4), "tauN": (1, 2e3), "tauP": (1, 1e4),
+                  "eps": (0, np.inf), "Tm": (0, np.inf)}
+
+
+def _example_param_info(trial_move, **prior):
+    """The staub parameters of the example configs: the reference
+    initial guesses (Inputs/mcmc0.txt), n0, eps and Tm frozen, every
+    parameter log-scaled, ``write-example``'s priors with ``prior``
+    overriding them."""
+    from metrotrpl_tpu_torch.workloads import staub_param_info
+
+    pi = staub_param_info(trial_move=trial_move)
+    pi["prior_dist"] = {**_EXAMPLE_PRIOR, **prior}
+    return pi
+
+
+def _example_mcmc(fast, **fields):
+    """``fields`` and the MCMC fields the example configs share: 8
+    chains at T = 1..128 swapping every 10th iteration, hard bounds,
+    model uncertainty 1 on log-y data, and the solver: ``fast`` is the
+    sdirk fast mode at the hmax validated for the staub workload (48,
+    chord blocks of 4), else the reference writer's solveivp."""
+    return {**fields,
+            **({"solver": ("sdirk",), "hmax": 48.0, "refactor_every": 4}
+               if fast else {"solver": ("solveivp",)}),
+            "model_uncertainty": 1, "log_y": 1, "scale_factor": None,
+            "parallel_tempering": [1., 2., 4., 8., 16., 32., 64., 128.],
+            "temper_freq": 10, "hard_bounds": 1, "force_min_y": 0,
+            "load_checkpoint": None}
+
+
 def write_example_config(out, model="std", fast=False, num_iters=100,
                          init_cond=None, measurement=None, output=None,
                          checkpoint_freq=1000, verbose=False):
@@ -179,30 +224,10 @@ def write_example_config(out, model="std", fast=False, num_iters=100,
     from metrotrpl_tpu_torch.config import generate_config_script_file
     from metrotrpl_tpu_torch.workloads import TRAPS_TRUE
 
-    names = ["n0", "p0", "mu_n", "mu_p", "ks", "Cn", "Cp", "Sf", "Sb",
-             "tauN", "tauP", "eps", "Tm"]
     simPar = {"lengths": [311, 2000, 311, 2000, 311, 2000],
               "nx": [128] * 6, "meas_types": ["TRPL"] * 6, "num_meas": 6}
-    param_info = {
-        "names": names,
-        "unit_conversions": {"n0": 1e-21, "p0": 1e-21, "mu_n": 1e5,
-                             "mu_p": 1e5, "ks": 1e12, "Cn": 1e33,
-                             "Cp": 1e33, "Sf": 1e-2, "Sb": 1e-2, "Tm": 1},
-        "do_log": {n: 1 for n in names},
-        "active": {n: (0 if n in ("n0", "eps", "Tm") else 1) for n in names},
-        "init_guess": {"n0": 1e8, "p0": 3e15, "mu_n": 20, "mu_p": 20,
-                       "ks": 4.8e-11, "Cn": 4.4e-29, "Cp": 4.4e-29,
-                       "Sf": 10, "Sb": 10, "tauN": 511, "tauP": 871,
-                       "eps": 10, "Tm": 300},
-        "prior_dist": {"n0": (0, np.inf), "p0": (1e14, 1e16),
-                       "mu_n": (1e0, 1e2), "mu_p": (1e0, 1e2),
-                       "ks": (1e-11, 1e-9), "Cn": (1e-29, 1e-27),
-                       "Cp": (1e-29, 1e-27), "Sf": (1e-1, 1e4),
-                       "Sb": (1e-1, 1e4), "tauN": (1, 2e3),
-                       "tauP": (1, 1e4), "eps": (0, np.inf),
-                       "Tm": (0, np.inf)},
-        "trial_move": {n: 0.003 for n in names},
-    }
+    param_info = _example_param_info(0.003)
+    names = param_info["names"]
     if model == "traps":
         for n, v in TRAPS_TRUE.items():
             names.append(n)
@@ -222,30 +247,15 @@ def write_example_config(out, model="std", fast=False, num_iters=100,
             param_info["init_guess"][n] *= 10.0 ** rng.uniform(-0.3, 0.3)
 
     meas_fields = {"time_cutoff": [0, 2000], "select_obs_sets": None}
-    MCMC_fields = {
-        "init_cond_path": init_cond or os.path.join(
+    MCMC_fields = _example_mcmc(
+        fast,
+        init_cond_path=init_cond or os.path.join(
             "Inputs", "staub_MAPI_threepower_twothick_fluences.csv"),
-        "measurement_path": measurement or os.path.join(
+        measurement_path=measurement or os.path.join(
             "Inputs", "staub_MAPI_threepower_twothick_nonoise.csv"),
-        "output_path": output or os.path.join("bay_outputs", "run0"),
-        "ini_mode": "fluence",
-        "num_iters": num_iters,
-        # fast: the fast integration mode at the hmax validated for this
-        # workload; the default keeps the reference writer's solver choice
-        **({"solver": ("sdirk",), "hmax": 48.0, "refactor_every": 4}
-           if fast else {"solver": ("solveivp",)}),
-        "model": model,
-        "model_uncertainty": 1,
-        "log_y": 1,
-        "scale_factor": None,
-        "irf_convolution": None,
-        "parallel_tempering": [1., 2., 4., 8., 16., 32., 64., 128.],
-        "temper_freq": 10,
-        "hard_bounds": 1,
-        "force_min_y": 0,
-        "checkpoint_freq": checkpoint_freq,
-        "load_checkpoint": None,
-    }
+        output_path=output or os.path.join("bay_outputs", "run0"),
+        ini_mode="fluence", num_iters=num_iters, model=model,
+        irf_convolution=None, checkpoint_freq=checkpoint_freq)
     generate_config_script_file(out, simPar, param_info, meas_fields,
                                 MCMC_fields, verbose=verbose)
     print(f"Wrote {out}")
@@ -280,6 +290,121 @@ def cmd_write_example(args):
                          verbose=True)
 
 
+def cmd_write_real_example(args):
+    """Generate a config fitting the vendored REAL measured staub MAPI
+    dataset (the reference's actual scientific use case):
+    `Inputs/real_staub_aug_corr_renoised.csv` — 3 excitation powers at
+    311 nm, 141 points to 4248 ns each, absolute-units TRPL — with
+    density-mode initial profiles from `Inputs/real_staub_input.csv`
+    (reference Inputs/ assets; see docs/REAL_DATA.md walkthrough).
+
+    --irf adds detector-IRF convolution with the vendored 745 nm table
+    (near the MAPI emission wavelength). The dataset's ~30 ns binning
+    makes the 4.7 ns-wide IRF numerically almost an identity, so it is
+    off by default; the flag exists to exercise the full pipeline on
+    real data."""
+    from metrotrpl_tpu_torch.config import generate_config_script_file
+
+    args.out = _resolve_out(args)
+    n_meas = 3
+    simPar = {"lengths": [311] * n_meas, "nx": [128] * n_meas,
+              "meas_types": ["TRPL"] * n_meas, "num_meas": n_meas}
+    param_info = _example_param_info(
+        0.01, Sf=(1e-4, 1e4), Sb=(1e-4, 1e4), tauN=(1, 1500),
+        tauP=(1, 3000))
+    meas_fields = {"time_cutoff": [0, np.inf], "select_obs_sets": None}
+    MCMC_fields = _example_mcmc(
+        args.fast,
+        init_cond_path=args.init_cond or os.path.join(
+            "Inputs", "real_staub_input.csv"),
+        measurement_path=args.measurement or os.path.join(
+            "Inputs", "real_staub_aug_corr_renoised.csv"),
+        output_path=args.output or os.path.join("bay_outputs", "real0"),
+        ini_mode="density", num_iters=args.num_iters, model="std",
+        irf_convolution=[745] * n_meas if args.irf else None,
+        checkpoint_freq=1000)
+    generate_config_script_file(args.out, simPar, param_info, meas_fields,
+                                MCMC_fields, verbose=True)
+    print(f"Wrote {args.out}")
+
+
+def cmd_write_pa_example(args):
+    """Generate the 'pa' toy-problem config (reference pa_toy_writer.py:
+    1D multi-well potential, tempering ladder [0.05, 0.3, 2])."""
+    from metrotrpl_tpu_torch.config import generate_config_script_file
+
+    args.out = _resolve_out(args)
+    simPar = {"lengths": [1], "nx": [1], "meas_types": ["pa"],
+              "num_meas": 1}
+    param_info = {
+        "names": ["x0"],
+        "unit_conversions": {},
+        "do_log": {"x0": 0},
+        "active": {"x0": 1},
+        "init_guess": {"x0": 0.2},
+        "prior_dist": {"x0": (-2, 2)},
+        "trial_move": {"x0": 0.2},
+    }
+    meas_fields = {"time_cutoff": [0, np.inf], "select_obs_sets": None}
+    MCMC_fields = {
+        "init_cond_path": args.init_cond or "pa_ic.csv",
+        "measurement_path": args.measurement or "pa_data.csv",
+        "output_path": args.output or os.path.join("bay_outputs", "pa0"),
+        "ini_mode": "density",
+        "num_iters": args.num_iters,
+        "solver": ("solveivp",),
+        "model": "pa",
+        "model_uncertainty": 1,
+        "log_y": 1,
+        "hard_bounds": 1,
+        "parallel_tempering": [0.05, 0.3, 2.0],
+        "temper_freq": 10,
+        "checkpoint_freq": 1000,
+        "load_checkpoint": None,
+    }
+    generate_config_script_file(args.out, simPar, param_info, meas_fields,
+                                MCMC_fields, verbose=True)
+    # minimal companion data files so the config runs out of the box
+    base = os.path.dirname(args.out) or "."
+    ic = MCMC_fields["init_cond_path"]
+    mp = MCMC_fields["measurement_path"]
+    for path, content in ((os.path.join(base, os.path.basename(ic)),
+                           "0\n"),
+                          (os.path.join(base, os.path.basename(mp)),
+                           "0,1,1\n")):
+        if not os.path.exists(path):
+            with open(path, "w") as f:
+                f.write(content)
+    print(f"Wrote {args.out}")
+
+
+def cmd_convert_config(args):
+    """Convert between the reference text format and the native TOML
+    format (direction chosen by the output extension)."""
+    import copy
+
+    from metrotrpl_tpu_torch.config import (
+        finalize_config,
+        generate_config_script_file,
+        parse_config,
+        write_config_toml,
+    )
+
+    # Writers expect RAW (pre-finalize) dicts: finalize subsets the grid
+    # under select_obs_sets, which must not be baked into the written file
+    # (the written config still references the full measurement CSVs).
+    raw = parse_config(args.src)
+    finalize_config(*copy.deepcopy(raw))  # validate without mutating
+    dst = args.dst
+    if dst.endswith(".toml"):
+        write_config_toml(dst, *raw)
+    else:
+        generate_config_script_file(dst, *raw)
+        if not dst.endswith(".txt"):
+            dst += ".txt"  # the text writer enforces the extension
+    print(f"Wrote {dst}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="metrotrpl_tpu_torch",
                                 description=__doc__,
@@ -312,19 +437,40 @@ def main(argv=None):
             sp.add_argument("--maxiter", type=int, default=None)
         sp.set_defaults(fn=fn)
 
-    sp = sub.add_parser("write-example")
-    sp.add_argument("out",
-                    help="config path (*.txt), or a script header written "
-                         "as {header}{jobid}.txt")
-    sp.add_argument("--jobid", type=int, default=None)
-    sp.add_argument("--num-iters", type=int, default=100)
-    sp.add_argument("--fast", action="store_true",
-                    help="sdirk fast solver config (hmax 48, chord "
-                         "refactor_every 4) instead of reference solveivp")
-    sp.add_argument("--init-cond", default=None)
-    sp.add_argument("--measurement", default=None)
-    sp.add_argument("--output", default=None)
-    sp.set_defaults(fn=cmd_write_example)
+    for name, fn, iters in (
+            ("write-example", cmd_write_example, 100),
+            ("write-real-example", cmd_write_real_example, 8000),
+            ("write-pa-example", cmd_write_pa_example, 5000)):
+        sp = sub.add_parser(name)
+        sp.add_argument("out",
+                        help="config path (*.txt), or a script header "
+                             "written as {header}{jobid}.txt")
+        sp.add_argument("--jobid", type=int, default=None,
+                        help="defaults to $SLURM_ARRAY_TASK_ID, else 0")
+        sp.add_argument("--num-iters", type=int, default=iters)
+        if name in ("write-example", "write-real-example"):
+            sp.add_argument("--fast", action="store_true",
+                            help="sdirk fast solver config (hmax 48, chord "
+                                 "refactor_every 4) instead of reference "
+                                 "solveivp")
+        if name == "write-real-example":
+            sp.add_argument(
+                "--irf", action="store_true",
+                help="convolve with the vendored 745 nm detector IRF "
+                     "(~identity at this dataset's 30 ns binning; "
+                     "exercises the full pipeline)")
+        sp.add_argument("--init-cond", default=None)
+        sp.add_argument("--measurement", default=None)
+        sp.add_argument("--output", default=None)
+        sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser(
+        "convert-config",
+        help="convert between the reference text config format and the "
+             "native TOML format (by output extension)")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+    sp.set_defaults(fn=cmd_convert_config)
 
     args = p.parse_args(argv)
     return args.fn(args)

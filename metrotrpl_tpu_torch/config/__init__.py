@@ -21,6 +21,8 @@ from metrotrpl_tpu_torch.config.script_io import (  # noqa: F401
 )
 from metrotrpl_tpu_torch.config.native import (  # noqa: F401
     read_config_toml,
+    parse_config_toml,
+    write_config_toml,
 )
 
 
@@ -43,4 +45,13 @@ def read_config(path):
     if str(path).endswith(".toml"):
         return read_config_toml(path)
     return read_config_script_file(path)
+
+
+def parse_config(path):
+    """Format-dispatching RAW parser (no finalize pipeline): the
+    pre-validation dicts the config writers expect, so that
+    parse -> write round-trips losslessly (used by convert-config)."""
+    if str(path).endswith(".toml"):
+        return parse_config_toml(path)
+    return parse_config_script_file(path)
 

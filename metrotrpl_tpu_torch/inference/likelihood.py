@@ -1,11 +1,14 @@
 """Tempered Gaussian log-likelihood of parameter states.
 
-Counterpart of ``metrotrpl_tpu/inference/likelihood.py`` (the ``pde``
-kind). :func:`build_likelihood_plan` builds the host numpy plan, field
-for field as the JAX one does; :func:`make_eval_logll` expands K states into the
+Counterpart of the JAX package's ``inference/likelihood.py``.
+:func:`build_likelihood_plan` builds the host numpy plan, field for field
+as the JAX one does, for each kind: ``pde`` (the forward solve), ``nn``
+(the surrogate of ``surrogate.py``) and ``pa`` (a toy potential).
+For the ``pde`` kind :func:`make_eval_logll` expands K states into the
 (K * M) simulation batch, solves it, runs the escalation ladder and the
 comparison pipeline, and returns the log-likelihood of every state at
-every temperature.
+every temperature; the ``nn`` kind runs the same comparison pipeline on
+the surrogate's curves, and neither it nor ``pa`` launches a kernel.
 
 The ladder runs inline: rows that need repair are gathered, solved again
 on the escalation plan (on the card: the float64 instantiation of the
@@ -13,6 +16,7 @@ same CUDA kernel) and scattered back. Rows are independent, so this
 equals the JAX "solve every row, then select" (likelihood.py:868-874).
 """
 
+import copy
 import logging
 from typing import NamedTuple, Optional
 
@@ -59,8 +63,9 @@ def search_c_grps(c_grps, i):
 class LikelihoodPlan(NamedTuple):
     """Static data for batched likelihood evaluation (host numpy); field
     for field the JAX ``LikelihoodPlan``."""
-    kind: str
-    fwd: Optional[tuple]        # ((meas idx, ForwardPlan, escalation plan), ...)
+    kind: str                   # "pde" | "pa" | "nn"
+    fwd: Optional[tuple]        # ((meas idx, ForwardPlan, escalation plan),
+                                # ...) for "pde", else None
     n_meas: int
     n_params: int
     param_names: tuple
@@ -82,7 +87,7 @@ class LikelihoodPlan(NamedTuple):
     n_conv: np.ndarray
     force_min_y: bool
     log_y: bool
-    nn: object = None
+    nn: object = None           # the surrogate.NeuralNetwork of "nn"
     thickness: np.ndarray = None
     newton_div_tol: Optional[float] = None
     esc_gate_score: float = ESCALATE_GATE_SCORE
@@ -158,11 +163,16 @@ def build_likelihood_plan(sim_info, param_info, MCMC_fields, e_data, iniPar,
 
     times, vals, uncs = e_data
     solver_spec = MCMC_fields.get("solver", ("solveivp",))
-    if any(m == "pa" for m in meas_types) or (
-            solver_spec and solver_spec[0] == "NN"):
-        raise NotImplementedError(
-            "the 'pa' and NN likelihood kinds are not ported yet")
-    kind = "pde"
+    if any(m == "pa" for m in meas_types):
+        if not all(m == "pa" for m in meas_types):
+            raise NotImplementedError("Mixed pa + PDE measurements unsupported")
+        kind = "pa"
+    elif solver_spec and solver_spec[0] == "NN":
+        if any(m != "TRPL" for m in meas_types):
+            raise NotImplementedError("NN surrogate supports TRPL only")
+        kind = "nn"
+    else:
+        kind = "pde"
 
     nt_exp = max(len(t) for t in times)
     exp_times = np.zeros((n_meas, nt_exp))
@@ -212,63 +222,68 @@ def build_likelihood_plan(sim_info, param_info, MCMC_fields, e_data, iniPar,
     absp_idx = _fittable_index_map(
         MCMC_fields.get("fittable_absps"), n_meas, param_idx, "_a")
 
+    fwd = None
     has_irf = np.zeros(n_meas, dtype=bool)
     irf_mats = np.zeros((n_meas, 1, 3))
     res_t = np.zeros((n_meas, 3))
     n_conv = np.zeros(n_meas, dtype=np.int64)
 
-    # forward-solve groups: measurements sharing an nx batch together
-    nx_list = [int(n) for n in sim_info["nx"]]
-    if MCMC_fields["ini_mode"] == "density" and len(set(nx_list)) > 1:
-        raise NotImplementedError(
-            "density-mode initial profiles require a uniform nx")
-    hm = hmax if hmax is not None else MCMC_fields.get("hmax", 4.0)
-    if hm == 0:
-        hm = 4.0
-    fwd = []
-    for nx_val in sorted(set(nx_list)):
-        idx = np.array([m for m in range(n_meas) if nx_list[m] == nx_val])
+    if kind == "pde":
+        # forward-solve groups: measurements sharing an nx batch together
+        nx_list = [int(n) for n in sim_info["nx"]]
+        if MCMC_fields["ini_mode"] == "density" and len(set(nx_list)) > 1:
+            raise NotImplementedError(
+                "density-mode initial profiles require a uniform nx")
+        hm = hmax if hmax is not None else MCMC_fields.get("hmax", 4.0)
+        if hm == 0:
+            hm = 4.0
+        fwd = []
+        for nx_val in sorted(set(nx_list)):
+            idx = np.array([m for m in range(n_meas)
+                            if nx_list[m] == nx_val])
 
-        def _mk(r, chord=True, hm_x=None):
-            return make_forward_plan(
-                [sim_info["lengths"][m] for m in idx],
-                [nx_val] * len(idx),
-                [meas_types[m] for m in idx],
-                [times[m] for m in idx],
-                hmax=(hm if hm_x is None else hm_x),
-                model=MCMC_fields["model"], scheme=scheme,
-                newton_iters=newton_iters, refine=r,
-                align_outputs=align_outputs,
-                refactor_every=(refactor_every if chord else 1),
-                h0=h0, growth=growth,
-                ramp_block=(ramp_block if chord else 1),
-                newton_plateau=(newton_plateau if chord else None))
-        # escalation plan (the JAX twin documents its calibration): the
-        # chord-free h<=16 float64 rung at nx >= 96, otherwise a chord-free
-        # f32 plan at h<=4 (h<=16 at nx > 64), refined 2x when the base plan
-        # is already chord-free at that step
-        esc_hm = min(hm, 4.0 if nx_val <= 64 else 16.0)
-        esc_refine = (refine if (hm > esc_hm or refactor_every > 1
-                                 or ramp_block > 1 or newton_plateau)
-                      else refine * 2)
-        fp_hi = None
-        if escalate:
-            if nx_val >= 96 and allow_f64:
-                fp_hi = _mk(refine, chord=False,
-                            hm_x=min(hm, 16.0))._replace(
-                                solve_dtype="float64")
-            else:
-                if nx_val >= 96:
-                    logging.getLogger("MCMC").warning(
-                        "float64 is unavailable: the nx>=96 escalation "
-                        "rung falls back to float32 h<=16, which cannot "
-                        "repair the stiff high-mobility rows.")
-                fp_hi = _mk(esc_refine, chord=False, hm_x=esc_hm)
-        fwd.append((idx, _mk(refine), fp_hi))
-    fwd = tuple(fwd)
+            def _mk(r, chord=True, hm_x=None):
+                return make_forward_plan(
+                    [sim_info["lengths"][m] for m in idx],
+                    [nx_val] * len(idx),
+                    [meas_types[m] for m in idx],
+                    [times[m] for m in idx],
+                    hmax=(hm if hm_x is None else hm_x),
+                    model=MCMC_fields["model"], scheme=scheme,
+                    newton_iters=newton_iters, refine=r,
+                    align_outputs=align_outputs,
+                    refactor_every=(refactor_every if chord else 1),
+                    h0=h0, growth=growth,
+                    ramp_block=(ramp_block if chord else 1),
+                    newton_plateau=(newton_plateau if chord else None))
+            # escalation plan (the JAX twin documents its calibration):
+            # the chord-free h<=16 float64 rung at nx >= 96, otherwise a
+            # chord-free f32 plan at h<=4 (h<=16 at nx > 64), refined 2x
+            # when the base plan is already chord-free at that step
+            esc_hm = min(hm, 4.0 if nx_val <= 64 else 16.0)
+            esc_refine = (refine if (hm > esc_hm or refactor_every > 1
+                                     or ramp_block > 1 or newton_plateau)
+                          else refine * 2)
+            fp_hi = None
+            if escalate:
+                if nx_val >= 96 and allow_f64:
+                    fp_hi = _mk(refine, chord=False,
+                                hm_x=min(hm, 16.0))._replace(
+                                    solve_dtype="float64")
+                else:
+                    if nx_val >= 96:
+                        logging.getLogger("MCMC").warning(
+                            "float64 is unavailable: the nx>=96 escalation "
+                            "rung falls back to float32 h<=16, which cannot "
+                            "repair the stiff high-mobility rows.")
+                    fp_hi = _mk(esc_refine, chord=False, hm_x=esc_hm)
+            fwd.append((idx, _mk(refine), fp_hi))
+        fwd = tuple(fwd)
 
+    # the IRF machinery is solver-independent: the reference convolves
+    # every solver's output, the NN surrogate's included
     irf_spec = MCMC_fields.get("irf_convolution", None)
-    if irf_spec is not None:
+    if kind in ("pde", "nn") and irf_spec is not None:
         irf_tables = irf_tables or {}
         nk_irf = max(
             (len(irf_tables[int(w)][0]) for w in irf_spec if w > 0),
@@ -311,6 +326,12 @@ def build_likelihood_plan(sim_info, param_info, MCMC_fields, e_data, iniPar,
         pad = np.ones((n_meas, 3 - init_profiles.shape[1]))
         init_profiles = np.concatenate([init_profiles, pad], axis=1)
 
+    nn = None
+    if kind == "nn":
+        from metrotrpl_tpu_torch.surrogate import NeuralNetwork
+        nn = NeuralNetwork()
+        nn.load_model(solver_spec[1], solver_spec[2])
+
     return LikelihoodPlan(
         kind=kind,
         fwd=fwd,
@@ -335,7 +356,7 @@ def build_likelihood_plan(sim_info, param_info, MCMC_fields, e_data, iniPar,
         n_conv=n_conv,
         force_min_y=bool(MCMC_fields.get("force_min_y", 0)),
         log_y=bool(MCMC_fields["log_y"]),
-        nn=None,
+        nn=nn,
         thickness=np.asarray(sim_info["lengths"], dtype=float),
         newton_div_tol=_resolve_newton_div_tol(
             newton_div_tol if newton_div_tol is not None
@@ -379,6 +400,60 @@ def expand_states(plan, g_idx, x_centers, states, init_profiles, units):
     return init_dN, raw
 
 
+def _tile_rows(a, K):
+    """(M, ...) -> (K*M, ...): the plan's per-measurement rows for K
+    states, state-major."""
+    return a.repeat((K,) + (1,) * (a.dim() - 1))
+
+
+def _make_irf_stage(plan, dtype, device):
+    """The IRF branch of the compare pipeline (reference laplace.py
+    do_irf_convolution with the time max-shift, then post_conv_trim).
+
+    Returns irf(sol (K*M, nt_exp)) -> (sol_irf (K*M, nt_exp) on the
+    experiment grid, irf_valid (K*M, nt_exp) the points inside the
+    convolved span, conv_fail (K*M,) the rows whose peak is at the end).
+    Rows of measurements without an IRF come out too, and are discarded
+    by the caller."""
+    M = plan.n_meas
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    exp_times = t(plan.exp_times)
+    irf_tables = t(plan.irf_tables)
+    res_t = t(plan.res_t)
+    n_conv = t(plan.n_conv, torch.int64)
+    R = plan.res_t.shape[1]
+    n_conv_pts = (R - 1) // 2 + 1
+    conv_t_base = res_t[:, ::2]                               # (M, ncp)
+    conv_pts = torch.arange(n_conv_pts, device=device)[None, :]
+
+    def irf(sol):
+        K = sol.shape[0] // M
+        b_exp_t = _tile_rows(exp_times, K)
+        resampled = interp1d(_tile_rows(res_t, K), b_exp_t, sol)
+        resampled = torch.nan_to_num(resampled, nan=0.0)
+        conv = convolve_moments(resampled, _tile_rows(irf_tables, K))
+        b_n_conv = _tile_rows(n_conv, K)
+        conv_valid = conv_pts < b_n_conv[:, None]
+        conv_masked = torch.where(conv_valid, conv, -torch.inf)
+        shift_i = torch.argmax(conv_masked, dim=1)
+        b_conv_t = _tile_rows(conv_t_base, K)
+        t_shift = torch.gather(b_conv_t, 1, shift_i[:, None])
+        conv_t_shifted = b_conv_t - t_shift
+        # rows without an IRF have n_conv = 0: index -1 wraps to the last
+        # point, as numpy-style indexing does in the JAX twin
+        t_last = torch.gather(
+            b_conv_t, 1, torch.remainder(b_n_conv - 1, n_conv_pts)[:, None])
+        conv_fail = (t_last - t_shift)[:, 0] <= 0.0  # peak at the end
+        sol_irf = interp1d(b_exp_t, conv_t_shifted, conv)
+        irf_valid = b_exp_t < (t_last - t_shift)
+        return sol_irf, irf_valid, conv_fail
+
+    return irf
+
+
 def _make_compare_pipeline(plan, dtype, device):
     """Post-solve comparison: IRF convolution (evaluated for every row,
     selected where configured), negative-value tolerance, force_min_y and
@@ -391,47 +466,23 @@ def _make_compare_pipeline(plan, dtype, device):
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 
-    exp_times = t(plan.exp_times)
     exp_vals = t(plan.exp_vals)
     exp_uncs2 = 2.0 * t(plan.exp_uncs) ** 2
     exp_mask = t(plan.exp_mask, torch.bool)
     sigma2 = t(plan.sigma) ** 2
     has_irf = t(plan.has_irf, torch.bool)
-    irf_tables = t(plan.irf_tables)
-    res_t = t(plan.res_t)
-    n_conv = t(plan.n_conv, torch.int64)
-    R = plan.res_t.shape[1]
-    n_conv_pts = (R - 1) // 2 + 1
-    conv_t_base = res_t[:, ::2]                               # (M, ncp)
-    conv_pts = torch.arange(n_conv_pts, device=device)[None, :]
+    irf = _make_irf_stage(plan, dtype, device)
 
     def compare(sol, scale_shift, temps):
         K = sol.shape[0] // M
 
         def tile_m(a):  # (M, ...) -> (K*M, ...)
-            return a.repeat((K,) + (1,) * (a.dim() - 1))
+            return _tile_rows(a, K)
 
-        b_exp_t = tile_m(exp_times)
         b_exp_mask = tile_m(exp_mask)
 
         # ---- IRF convolution path (computed for every row, selected) ----
-        resampled = interp1d(tile_m(res_t), b_exp_t, sol)
-        resampled = torch.nan_to_num(resampled, nan=0.0)
-        conv = convolve_moments(resampled, tile_m(irf_tables))
-        b_n_conv = tile_m(n_conv)
-        conv_valid = conv_pts < b_n_conv[:, None]
-        conv_masked = torch.where(conv_valid, conv, -torch.inf)
-        shift_i = torch.argmax(conv_masked, dim=1)
-        b_conv_t = tile_m(conv_t_base)
-        t_shift = torch.gather(b_conv_t, 1, shift_i[:, None])
-        conv_t_shifted = b_conv_t - t_shift
-        # rows without an IRF have n_conv = 0: index -1 wraps to the last
-        # point, as numpy-style indexing does in the JAX twin
-        t_last = torch.gather(
-            b_conv_t, 1, torch.remainder(b_n_conv - 1, n_conv_pts)[:, None])
-        conv_fail = (t_last - t_shift)[:, 0] <= 0.0  # peak at the end
-        sol_irf = interp1d(b_exp_t, conv_t_shifted, conv)
-        irf_valid = b_exp_t < (t_last - t_shift)
+        sol_irf, irf_valid, conv_fail = irf(sol)
 
         b_has_irf = tile_m(has_irf)
         sol_cmp = torch.where(b_has_irf[:, None], sol_irf, sol)
@@ -486,8 +537,10 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
     'repair_states' (K,), the rows per state the ladder solved again.
     States are in entry units; every tensor lives on ``device``."""
     device = resolve_device(device)
-    if plan.kind != "pde":
-        raise NotImplementedError(f"likelihood kind {plan.kind!r}")
+    if plan.kind == "pa":
+        return _make_eval_pa(plan, dtype, device)
+    if plan.kind == "nn":
+        return _make_eval_nn(plan, dtype, device)
     M = plan.n_meas
 
     def t(a, dt=dtype):
@@ -650,3 +703,90 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
                 "repair_states": repair_states}
 
     return eval_logll
+
+
+def u_potential(x):
+    """Toy multi-well 1D potential for the 'pa' measurement type
+    (reference utils.py:41-57)."""
+    base = 1 + torch.sin(2 * torch.pi * x)
+    u = torch.where(x < -1.25, 1 * base,
+        torch.where(x < -0.25, 2 * base,
+        torch.where(x < 0.75, 3 * base,
+        torch.where(x < 1.75, 4 * base, 5 * base))))
+    return torch.where((x < -2) | (x > 2), torch.inf, u)
+
+
+def _no_solve_outputs(ll, K, M):
+    """The diagnostics of a kind that runs no solve: all zero."""
+    dev = ll.device
+    zeros_k = torch.zeros((K,), dtype=torch.int64, device=dev)
+    return {"n_solver_fail": torch.zeros((), dtype=torch.int64, device=dev),
+            "fail_states": zeros_k, "repair_states": zeros_k,
+            "resid": torch.zeros((K, M), dtype=ll.dtype, device=dev),
+            "esc_score": torch.zeros((K, M), dtype=ll.dtype, device=dev)}
+
+
+def _make_eval_pa(plan, dtype, device):
+    """The 'pa' toy likelihood: -U(x0) / T for every state and
+    temperature (JAX likelihood.py:678-687)."""
+    def eval_pa(states, temps):
+        u = u_potential(states[:, 0])                         # (K,)
+        ll = -u[:, None] / temps[None, :]                     # (K, Kt)
+        return {"logll_T": ll, "per_meas": ll[:, None, :],
+                **_no_solve_outputs(ll, states.shape[0], 1)}
+    return eval_pa
+
+
+#: the NN surrogate's state features, in the reference's order, before
+#: 1/eps, fluence, absorption and thickness (forward_solver.py:213-219)
+_NN_FEATURES = ("p0", "mu_n", "mu_p", "ks", "Cn", "Cp", "Sf", "Sb", "tauN",
+                "tauP")
+
+
+def _make_eval_nn(plan, dtype, device):
+    """Likelihood evaluation with the NN-surrogate forward model (JAX
+    likelihood.py:959-1017): features [p0, mu_n, mu_p, ks, Cn, Cp, Sf, Sb,
+    tauN, tauP, 1/eps, fluence, absp, thickness] in entry units (the
+    reference skips unit conversion for the NN), TRPL only, through the
+    same compare pipeline as the PDE solver's curve, IRF included."""
+    from metrotrpl_tpu_torch.surrogate import multiexp
+
+    M = plan.n_meas
+    net = copy.deepcopy(plan.nn).to(device=device, dtype=dtype)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    exp_times = t(plan.exp_times)
+    thick = t(plan.thickness)
+    init_profiles = t(plan.init_profiles)
+    scale_idx = t(plan.scale_idx, torch.int64)
+    fluence_idx = t(plan.fluence_idx, torch.int64)
+    absp_idx = t(plan.absp_idx, torch.int64)
+    feat_idx = t([plan.param_idx[n] for n in _NN_FEATURES], torch.int64)
+    eps_idx = plan.param_idx["eps"]
+    compare = _make_compare_pipeline(plan, dtype, device)
+
+    def eval_nn(states, temps):
+        K = states.shape[0]
+        # fittable _f/_a multipliers apply before feature assembly, as the
+        # reference multiplies iniPar[0]/iniPar[1]
+        # (trial_move_evaluation.py:39-51)
+        f_mult = _gather_or_one(states, fluence_idx)          # (K, M)
+        a_mult = _gather_or_one(states, absp_idx)
+        feats = torch.cat([
+            torch.repeat_interleave(states[:, feat_idx], M, dim=0),
+            torch.repeat_interleave(1.0 / states[:, eps_idx], M)[:, None],
+            (init_profiles[None, :, 0] * f_mult).reshape(K * M, 1),
+            (init_profiles[None, :, 1] * a_mult).reshape(K * M, 1),
+            thick.repeat(K)[:, None]], dim=1)                 # (K*M, 14)
+        coefs = net.postprocess(net(net.preprocess(feats)))
+        sol = multiexp(exp_times.repeat(K, 1), coefs)         # (K*M, nt)
+        s_fact = _gather_or_one(states, scale_idx)            # (K, M)
+        scale_shift = torch.log10(s_fact).reshape(K * M)
+        ll = compare(sol, scale_shift, temps)
+        per_meas = ll.reshape(K, M, -1)
+        return {"logll_T": torch.sum(per_meas, dim=1), "per_meas": per_meas,
+                **_no_solve_outputs(ll, K, M)}
+
+    return eval_nn

@@ -10,8 +10,9 @@ For CPU tensors it runs the plain PyTorch version
 the kernel's instantiation for the model (std, C=3, or traps, C=4) and
 dtype on the current stream, or raises. ``LAUNCHES`` counts kernel
 launches per (model, dtype), so a run can show which instantiations its
-solves went through. :func:`solve_flops` counts the operations a call
-needs, for the kernel's bound.
+solves went through, and ``ROWS`` the rows those launches solved.
+:func:`solve_flops` counts the operations a call needs, for the kernel's
+bound.
 """
 
 import ctypes
@@ -35,6 +36,8 @@ _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 #: kernel launches per (model, dtype), incremented only where the kernel
 #: launches
 LAUNCHES = {(m, d): 0 for m in N_COMP for d in _DTYPE_TAG}
+#: rows (simulations) solved by those launches
+ROWS = dict(LAUNCHES)
 
 _LIB = None
 
@@ -42,6 +45,7 @@ _LIB = None
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        ROWS[k] = 0
 
 
 def kernel_library():
@@ -172,6 +176,7 @@ def _launch(params, y0, dts, dx, model, scheme_name, newton_iters,
     if rc != 0:
         raise RuntimeError(f"sdirk_solve kernel launch failed: cudaError {rc}")
     LAUNCHES[(model, dtype)] += 1
+    ROWS[(model, dtype)] += B
     return out[0].T, out[1].T, out[2].T
 
 

@@ -181,3 +181,45 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_irf_oracle_toml_writer_and_parse_config_equal_jax(tmp_path):
+    """The port's IRF oracle gives the JAX oracle's arrays bit for bit on
+    the 745 nm IRF and a decay (tables, convolution, max-shift, trim); its
+    write_config_toml writes the JAX writer's bytes for the flagship
+    config's raw dicts; parse_config gives the JAX dicts on the text file
+    and on the TOML file."""
+    from metrotrpl_tpu.oracle import irf_reference as j_irf
+    from metrotrpl_tpu_torch.cli import main as tcli
+    from metrotrpl_tpu_torch.oracle import irf_reference as t_irf
+
+    irf = np.loadtxt(os.path.join(REPO, "IRFs", "irf_745nm.csv"),
+                     delimiter=",")
+    t = np.linspace(0, 40, 81)
+    y = 1e3 * np.exp(-t / 7)
+    outs = []
+    for mod in (t_irf, j_irf):
+        table = mod.make_tables_numeric(irf[:40, 0], irf[:40, 1],
+                                        u_spacing=200)
+        ct, cy, ok = mod.do_irf_convolution_reference(
+            t, y, table, irf[:40, 0], time_max_shift=True)
+        outs.append((table, ct, cy, ok, *mod.post_conv_trim_reference(
+            ct, cy, t, np.log10(y), 0.1 + 0 * t)))
+    assert outs[0][3] and outs[1][3]
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+    meas = str(tmp_path / "meas.csv")
+    _stand_in_measurements(meas)
+    txt = str(tmp_path / "cfg.txt")
+    tcli(["write-example", txt, "--fast", "--init-cond", FLUENCES,
+          "--measurement", meas, "--output", str(tmp_path / "out")])
+    raw = tcfg.parse_config(txt)
+    assert_plans_equal(raw, jcfg.parse_config(txt), "parse_config(txt)")
+    tcfg.write_config_toml(str(tmp_path / "t.toml"), *raw)
+    jcfg.write_config_toml(str(tmp_path / "j.toml"), *jcfg.parse_config(txt))
+    assert (tmp_path / "t.toml").read_bytes() == \
+        (tmp_path / "j.toml").read_bytes()
+    toml = str(tmp_path / "t.toml")
+    assert_plans_equal(tcfg.parse_config(toml), jcfg.parse_config(toml),
+                       "parse_config(toml)")

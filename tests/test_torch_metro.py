@@ -69,11 +69,13 @@ def test_metro_resume_repeats_uninterrupted_walk(tmp_path):
 
 
 def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
-    """With jax and the JAX package unimportable, every port module and
-    chip_smoke.py import, write-example writes the flagship config (with
-    stand-in data), write_example_config the traps config, the port reads
-    both and builds their likelihood and move plans, and the evaluation
-    tensors are made on the CPU."""
+    """With jax and the JAX package unimportable, every port module (the
+    surrogate and the IRF oracle included) and chip_smoke.py import,
+    write-example writes the flagship config (with stand-in data),
+    write_example_config the traps config, the port reads both and builds
+    their likelihood and move plans, and the evaluation tensors are made
+    on the CPU; a seeded surrogate saved to .npz runs the NN likelihood
+    and write-pa-example's config the pa likelihood."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
@@ -89,6 +91,8 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         assert "metrotrpl_tpu_torch.config.validate" in names
         assert "metrotrpl_tpu_torch.inference.dense" in names
         assert "metrotrpl_tpu_torch.inference.mle" in names
+        assert "metrotrpl_tpu_torch.surrogate" in names
+        assert "metrotrpl_tpu_torch.oracle.irf_reference" in names
         import chip_smoke
         from metrotrpl_tpu_torch.cli import main, write_example_config
         d = {str(tmp_path)!r}
@@ -122,6 +126,36 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
             assert plan.fwd[0][2].solve_dtype == "float64"
             build_move_plan(pi, mc)
             make_eval_logll(plan, device="cpu")
+        import torch
+        from metrotrpl_tpu_torch.surrogate import NeuralNetwork
+        rng = np.random.default_rng(1)
+        net = NeuralNetwork()
+        net.set_params([(rng.standard_normal((14, 8)) * 0.3, np.zeros(8)),
+                        (rng.standard_normal((8, 4)) * 0.3, np.zeros(4))])
+        scales = np.array([np.zeros(14), np.ones(14) * 20, np.zeros(4),
+                           np.ones(4)], dtype=object)
+        net.save_npz(d + "/w.npz")
+        np.save(d + "/s.npy", scales, allow_pickle=True)
+        sim, pi, flags, mc = read_config(d + "/cfg.txt")
+        data = get_data(mc["measurement_path"], flags, mc)
+        mc["solver"] = ("NN", d + "/w.npz", d + "/s.npy")
+        plan = build_likelihood_plan(
+            sim, pi, mc, data, get_initpoints(mc["init_cond_path"], flags))
+        st = torch.tensor([[pi["init_guess"][n] for n in pi["names"]]],
+                          dtype=torch.float64)
+        one = torch.ones(1, dtype=torch.float64)
+        assert plan.kind == "nn" and plan.fwd is None
+        assert make_eval_logll(plan, device="cpu")(
+            st, one)["per_meas"].shape == (1, 6, 1)
+        main(["write-pa-example", d + "/pa.txt", "--init-cond",
+              d + "/pa_ic.csv", "--measurement", d + "/pa_data.csv"])
+        sim, pi, flags, mc = read_config(d + "/pa.txt")
+        plan = build_likelihood_plan(
+            sim, pi, mc, get_data(mc["measurement_path"], flags, mc),
+            get_initpoints(mc["init_cond_path"], flags))
+        assert plan.kind == "pa" and plan.fwd is None
+        assert torch.isfinite(make_eval_logll(plan, device="cpu")(
+            torch.tensor([[0.2]], dtype=torch.float64), one)["logll_T"]).all()
         assert sys.modules["jax"] is None
         assert sys.modules["metrotrpl_tpu"] is None
         assert not any(m.startswith(("jax.", "metrotrpl_tpu."))

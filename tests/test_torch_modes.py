@@ -102,8 +102,8 @@ def test_mle_matches_jax(tmp_path):
 def test_cli_inference_commands(tmp_path):
     """cli mcmc --ensembles 2 under array task 3 writes replicas 6 and 7
     (seeds 5 + 6 and 5 + 7: distinct walks); cli dense and cli mle write
-    their outputs; --mesh, mesh_shape and the pa kind raise
-    NotImplementedError."""
+    their outputs; --mesh and mesh_shape raise NotImplementedError; a pa
+    config builds a plan with no solve group."""
     from metrotrpl_tpu_torch.cli import main
     from metrotrpl_tpu_torch.config import generate_config_script_file
     from metrotrpl_tpu_torch.inference.likelihood import build_likelihood_plan
@@ -143,6 +143,6 @@ def test_cli_inference_commands(tmp_path):
     with pytest.raises(NotImplementedError, match="mesh"):
         metro(sim_info, iniPar, e_data, flags, pi, device="cpu",
               n_ensembles=2, mesh_shape=(2, 1))
-    with pytest.raises(NotImplementedError, match="pa"):
-        build_likelihood_plan(dict(sim_info, meas_types=["pa"]), pi, flags,
-                              e_data, iniPar)
+    pa_plan = build_likelihood_plan(dict(sim_info, meas_types=["pa"]), pi,
+                                    flags, e_data, iniPar)
+    assert pa_plan.kind == "pa" and pa_plan.fwd is None
