@@ -14,7 +14,8 @@ Phases, each of which raises on failure:
    over the Newton thresholds (0.5 and the 0.97*cap pin) must be the same
    rows, and on the others |d log10 observable| <= 1e-4. float64 on the
    escalation-rung plan (hmax 16, chord-free): relative error <= 1e-9.
-   CUDA-event times of both, and of the float64 kernel at B=9 (the
+   CUDA-event times of both (the kernel's over 20 runs, the plain
+   version's of the compared call), and of the float64 kernel at B=9 (the
    rung's rows per iteration in a profiled flagship walk), on a line of
    its own.
 3. The 8 high-mobility ridge states (scripts/.probe_r14_ridge_states.npz)
@@ -82,14 +83,38 @@ Phases, each of which raises on failure:
     the largest |ll|.
 16. The pa toy walk: `write-pa-example` then `cli mcmc --device cuda`,
     500 iterations: finite.
+17. The native runtime (metrotrpl_tpu_torch/runtime, g++ into its
+    _build/): both libraries build; the compiled std RHS's dy equals the
+    numpy RHS on a flagship state (rel 1e-12 per block); load_csv equals
+    np.loadtxt bit for bit on every Inputs/*.csv; one flagship
+    solve_reference(rhs="native") equals rhs="numpy" (rel 1e-9), both
+    timed.
+18. Quicksim on the card: phases 4's and 7's checkpoints through the
+    GUI's tk-free data layer (load_ensemble_chains, export_all into
+    chip_smoke_out/gui/); 4 std tasks from the std walk's last states and
+    2 traps tasks from the traps walk's, at the GUI's defaults (nx=128,
+    500 knots to 2000 ns); run_tasks(device="cuda") (the double kernels)
+    against the same tasks through the plain version on the CPU, rel <=
+    1e-9; one QuicksimManager(device="cuda") round trip in a spawned
+    child, equal to the parent's solve; ms per batch.
+19. Short posterior legs (scripts/posterior_torch.py): the std fast leg,
+    32 chains x 1000 iterations, and the traps fast leg, 32 x 500, on
+    their datasets. Every state and log-likelihood finite, acceptance in
+    [0.05, 0.8], the model's float kernel launched at least once per
+    iteration; walker-steps/s and launches per iteration. Then the float
+    kernel against its plain version (as in phase 2, at nx=32) at the
+    leg's last 32 states x its curves on the three plans the full legs
+    run: the fast plan (B=192 std, 64 traps), its ladder's chord-free
+    plan and the gold leg's plan; error, ms and bound per shape.
 
 Launch counts are zeroed just before each main path (phases 4, 7, 8, 10,
-11 and 13-16) and read just after it. The last three lines of standard output are the
+11, 13-16, 18 and each leg of 19) and read just after it. The last three lines of standard output are the
 kernels JSON object (one entry per instantiation, with its launches on
 its main path, its error against the plain version, CUDA-event times of
 kernel and plain version, and its bound: the larger of the FLOPs it needs
 (solve_kernel.solve_flops) over the card's non-tensor-core peak and its
-bytes over the memory rate), the nvidia-smi line and {"ok": true,
+bytes over the memory rate; the float ones also the comparisons of phase
+19 under posterior_shapes), the nvidia-smi line and {"ok": true,
 "device": {...}}. Without CUDA, or outside the repository, it exits
 non-zero and prints no result.
 """
@@ -103,6 +128,14 @@ from pathlib import Path
 
 import torch
 
+from metrotrpl_tpu_torch.solver.kernel_times import (
+    cuda_ms,
+    kernel_inputs,
+    kernel_vs_plain,
+    nvidia_smi_line,
+    solve_bound,
+)
+
 REPO = Path(__file__).resolve().parent
 N_ITERS = 200          # std walk
 N_ITERS_TRAPS = 100    # traps walk
@@ -115,56 +148,8 @@ N_ITERS_REAL = 100     # real-data walks, with and without the IRF
 N_ITERS_REAL_E8 = 50   # the real-data IRF walk at E_FUSED ensembles
 N_ITERS_NN = 200       # NN surrogate walk
 N_ITERS_PA = 500       # pa toy walk
-
-#: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit):
-#: non-tensor-core FLOP/s per scalar type, and the HBM rate in bytes/s
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-PEAK_BYTES = 3.35e12
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, n):
-    """Mean milliseconds of fn() over n runs, by CUDA events, after one
-    warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
-
-
-def solve_bound(dtype, B, nx, fp_x):
-    """(bound_ms, bound_by, flops, bytes) of one kernel call on plan fp_x:
-    the larger of the FLOPs it needs (solve_kernel.solve_flops, on this
-    plan's steps, Newton iterations and factorizations) over the peak for
-    its type, and of its bytes (inputs read once, outputs written once)
-    over the memory rate."""
-    from metrotrpl_tpu_torch.physics.models import N_COMP
-    from metrotrpl_tpu_torch.solver.solve_kernel import solve_flops
-
-    flops = B * solve_flops(
-        fp_x.model, nx, fp_x.n_steps, scheme_name=fp_x.scheme,
-        newton_iters=fp_x.newton_iters, refactor_every=fp_x.refactor_every,
-        n_ramp=fp_x.n_ramp, ramp_block=fp_x.ramp_block,
-        newton_plateau=fp_x.newton_plateau)
-    n, nc = fp_x.n_steps, N_COMP[fp_x.model]
-    size = torch.finfo(dtype).bits // 8
-    nbytes = size * (B * n + B * nc * nx + B * 17 + B + 3 * B * (n + 1))
-    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem
-            else "bytes", flops, nbytes)
-
+N_ITERS_POST = 1000    # the std posterior fast leg (32 chains)
+N_ITERS_POST_TRAPS = 500   # the traps posterior fast leg (32 chains)
 
 #: the reference-pinned likelihood fixtures (reference
 #: Tests/test_eval_trial_move.py, as tests/test_reference_parity.py:64-186
@@ -572,6 +557,223 @@ def phase16_pa(card, work, cli):
     return launches
 
 
+def phase17_runtime(card):
+    """The native runtime: the CSV parser and the compiled std RHS build;
+    the RHS, the parser and the oracle's native path against their numpy
+    versions."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch import runtime
+    from metrotrpl_tpu_torch.constants import eps0, q_C
+    from metrotrpl_tpu_torch.oracle import solve_reference
+    from metrotrpl_tpu_torch.oracle.scipy_reference import (
+        beer_lambert,
+        dydt_std,
+        efield_init,
+    )
+    from metrotrpl_tpu_torch.workloads import STAUB_TRUE, STAUB_UC
+
+    if not (runtime.native_available() and runtime.native_rhs_available()):
+        raise RuntimeError("phase 17: the native runtime did not build "
+                           "(g++ into metrotrpl_tpu_torch/runtime/_build)")
+    # a flagship state: staub truth, 311 nm, nx=128, the Beer-Lambert
+    # profile at 2.12e11 cm^-2 with its initial field
+    nx, L = 128, 311.0
+    dx = L / nx
+    pm = {k: v * STAUB_UC.get(k, 1) for k, v in STAUB_TRUE.items()}
+    x = np.linspace(dx / 2, L - dx / 2, nx)
+    ic = beer_lambert(2.12e11 * 1e-14, 6e4 * 1e-7, x)
+    N, P = ic + pm["n0"], ic + pm["p0"]
+    y = np.concatenate([N, P, efield_init(N, P, pm["n0"], pm["p0"],
+                                          pm["eps"], dx)])
+    lam = q_C / (pm["eps"] * eps0)
+    ref = dydt_std(0.0, y, nx, dx, pm["n0"], pm["p0"], pm["mu_n"],
+                   pm["mu_p"], pm["ks"], pm["Cn"], pm["Cp"], pm["Sf"],
+                   pm["Sb"], pm["tauN"], pm["tauP"], lam, pm["Tm"])
+    dy = runtime.dydt_std_native(y, nx, dx, pm)
+    rel = max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(
+        np.split(dy, [nx, 2 * nx]), np.split(ref, [nx, 2 * nx])))
+    print(f"phase 17: native std RHS vs numpy on a flagship state (nx=128): "
+          f"max rel err per block {rel:.3e} (limit 1e-12)")
+    if not rel <= 1e-12:
+        raise RuntimeError(f"phase 17: native RHS rel err {rel}")
+    names = sorted(f.name for f in (REPO / "Inputs").glob("*.csv"))
+    for name in names:
+        path = str(REPO / "Inputs" / name)
+        a, b = runtime.load_csv(path), np.loadtxt(path, delimiter=",")
+        if a.shape != b.shape or a.dtype != b.dtype \
+                or not np.array_equal(a, b):
+            raise RuntimeError(f"phase 17: load_csv({name}) differs from "
+                               "np.loadtxt")
+    print(f"phase 17: load_csv equals np.loadtxt bit for bit on {names}")
+    t = np.linspace(0, 2000, 501)
+    secs, curves = {}, {}
+    for rhs in ("numpy", "native"):
+        t0 = time.perf_counter()
+        curves[rhs] = solve_reference(ic, L, nx, t, pm, rhs=rhs)
+        secs[rhs] = time.perf_counter() - t0
+    rel = np.max(np.abs(curves["native"] - curves["numpy"])
+                 / np.abs(curves["numpy"]))
+    print(f"phase 17: solve_reference nx=128, 501 points to 2000 ns: "
+          f"rhs=numpy {secs['numpy']:.3f} s, rhs=native "
+          f"{secs['native']:.3f} s (host CPU of {card}); max rel diff "
+          f"{rel:.3e} (limit 1e-9)")
+    if not rel <= 1e-9:
+        raise RuntimeError(f"phase 17: native oracle rel diff {rel}")
+
+
+def phase18_quicksim(card, work):
+    """Quicksim on the card from the std and traps walks' checkpoints:
+    the GUI's data layer, run_tasks on the double kernels against the
+    plain version on the CPU, and a QuicksimManager round trip. Returns
+    the launches of the card's run_tasks calls."""
+    import numpy as np
+
+    from metrotrpl_tpu_torch.gui.popups import EXT_DEFAULTS
+    from metrotrpl_tpu_torch.gui.quicksim import (
+        QuicksimManager,
+        QuicksimTask,
+        run_tasks,
+    )
+    from metrotrpl_tpu_torch.gui.window import export_all, load_ensemble_chains
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    f64 = torch.float64
+    gui = work / "gui"
+    gui.mkdir()
+    batches = {}
+    for model, run, n_tasks in (("std", "run", 4), ("traps", "run_traps", 2)):
+        chains, meta = load_ensemble_chains(str(work / run /
+                                                "CPU0-final.pik"))
+        out_dir = export_all(chains, meta, out_parent=str(gui),
+                             tstamp=model)
+        ef = meta["ensemble"].ensemble_fields
+        units = {n: float(u) for n, u in zip(meta["names"], ef["units"])}
+        ext = {k: float(v) for k, v in EXT_DEFAULTS.items()}
+        tasks = [QuicksimTask(
+            thickness=ext["thickness"], nx=int(ext["nx"]),
+            final_time=ext["final_time"], nt=int(ext["nt"]),
+            fluence=ext["fluence"], absp=ext["absp"],
+            direction=ext["direction"], model=ef["model"],
+            params={p: float(np.asarray(c.data[p])[-1])
+                    for p in meta["names"]}) for c in chains[:n_tasks]]
+        print(f"phase 18 {model}: {len(chains)} chains loaded, exported to "
+              f"{out_dir} ({len(list(Path(out_dir).iterdir()))} files); "
+              f"{n_tasks} tasks from the last states")
+        batches[model] = (tasks, units)
+
+    sk.reset_launch_counts()
+    cards, ms = {}, {}
+    for model, (tasks, units) in batches.items():
+        run_tasks(tasks, units=units, device="cuda")   # plan and warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cards[model] = run_tasks(tasks, units=units, device="cuda")
+        ms[model] = (time.perf_counter() - t0) * 1e3
+    launches = dict(sk.LAUNCHES)
+    for model, (tasks, units) in batches.items():
+        t0 = time.perf_counter()
+        plain = run_tasks(tasks, units=units, device="cpu")
+        plain_s = time.perf_counter() - t0
+        rel = max(np.max(np.abs(a[1] - b[1]) / np.abs(b[1]))
+                  for a, b in zip(cards[model], plain))
+        fin = all(np.isfinite(a[1]).all() and a[1].shape == (tasks[0].nt,)
+                  for a in cards[model])
+        print(f"phase 18 {model}: run_tasks B={len(tasks)} nx=128, "
+              f"{tasks[0].nt} knots to {tasks[0].final_time:g} ns: card "
+              f"{ms[model]:.3f} ms per batch on {card}, plain PyTorch on "
+              f"the CPU {plain_s:.2f} s; max rel diff {rel:.3e} (limit "
+              f"1e-9); launches {model} f64 {launches[(model, f64)]}")
+        if not (fin and rel <= 1e-9):
+            raise RuntimeError(f"phase 18 {model}: the card's quicksim "
+                               f"differs from the plain version ({rel}) or "
+                               "is not finite")
+        if launches[(model, f64)] != 2:
+            raise RuntimeError(f"phase 18 {model}: {launches[(model, f64)]} "
+                               "double launches for 2 batches")
+
+    tasks, units = batches["std"]
+    qs = QuicksimManager(device="cuda")
+    t0 = time.perf_counter()
+    qs.simulate(tasks, units=units)
+    items, done = [], False
+    while not done and time.perf_counter() - t0 < 300:
+        got, done = qs.poll()
+        items.extend(got)
+        time.sleep(0.2)
+    qs.join(30)
+    rt = time.perf_counter() - t0
+    errors = [msg for idx, _, _, msg in items if idx < 0]
+    if not done or errors or len(items) != len(tasks):
+        raise RuntimeError(f"phase 18: the quicksim child did not finish "
+                           f"({done}, {len(items)} results, {errors})")
+    rel = max(np.max(np.abs(s - cards["std"][idx][1])
+                     / np.abs(cards["std"][idx][1]))
+              for idx, _, s, _ in items)
+    print(f"phase 18: QuicksimManager(device='cuda') round trip of "
+          f"{len(tasks)} std tasks in a spawned child: {rt:.2f} s (the "
+          f"child's start, imports and library load included); max rel "
+          f"diff from the parent's card solve {rel:.3e} (limit 1e-9)")
+    if not rel <= 1e-9:
+        raise RuntimeError(f"phase 18: the child's solve differs ({rel})")
+    return launches
+
+
+def phase19_posterior(card, dev):
+    """The posterior script's fast legs, short: std 32 x 1000, traps 32 x
+    500. Then the model's float kernel against its plain version at the
+    leg's last 32 states x its curves on the three plans the full legs
+    run: the fast plan, its ladder's chord-free plan, and the gold leg's
+    plan. Returns ({model: the leg's launches}, {model: the comparisons})."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import posterior_torch
+
+    f32 = torch.float32
+    launches, checks = {}, {}
+    for model, n_iters in (("std", N_ITERS_POST),
+                           ("traps", N_ITERS_POST_TRAPS)):
+        w = posterior_torch.WORKLOADS[model]()
+        t0 = time.perf_counter()
+        t, vals = posterior_torch.make_dataset(w)
+        data_s = time.perf_counter() - t0
+        r = posterior_torch.run_leg(w, t, vals, "fast", n_iters,
+                                    posterior_torch.N_CHAINS, "cuda",
+                                    log=lambda line: None)
+        launches[model] = r["launches"]
+        n32 = r["launches"][(model, f32)]
+        print(f"phase 19 {model}: fast leg, {r['n_chains']} chains x "
+              f"{n_iters} iterations in {r['seconds']:.2f} s (dataset "
+              f"{data_s:.1f} s before it): "
+              f"{r['walker_steps_per_s']:.1f} walker-steps/s past the initial "
+              f"evaluation on {card}; acceptance {r['acceptance']:.3f}; "
+              f"launches per iteration "
+              f"{ {k: round(v, 3) for k, v in r['launches_per_iteration'].items()} }; "
+              f"repaired rows per iteration "
+              f"{r['repaired_rows_per_iteration']:.3f} of "
+              f"{r['rows_per_iteration']}")
+        if not (np.isfinite(r["states"]).all() and np.isfinite(r["ll"]).all()):
+            raise RuntimeError(f"phase 19 {model}: a state or its "
+                               "log-likelihood is not finite")
+        if not 0.05 <= r["acceptance"] <= 0.8:
+            raise RuntimeError(f"phase 19 {model}: acceptance "
+                               f"{r['acceptance']}")
+        if n32 < n_iters:
+            raise RuntimeError(f"phase 19 {model}: the float {model} kernel "
+                               f"launched {n32} < {n_iters} times")
+        # the fast leg's plan and its ladder's, then the gold leg's plan
+        checks[model] = posterior_torch.kernel_checks(r, card, dev)
+        g = posterior_torch.LEGS["gold"]
+        gold = posterior_torch.build_plans(w, t, vals, g["hmax"],
+                                           g["refactor"], g["refine"])[0]
+        c = kernel_vs_plain(card, dev, gold, gold.fwd[0][1], f32,
+                            r["states"], f"phase 19 {model} gold plan")
+        print(f"{model} gold leg's plan: {c.pop('line')}")
+        checks[model].append(dict(plan="gold leg's plan", **c))
+    return launches, checks
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -583,9 +785,7 @@ def main():
     from metrotrpl_tpu_torch.cli import write_example_config
     from metrotrpl_tpu_torch.inference.likelihood import (
         ESCALATE_MU_MODEL,
-        expand_states,
         make_eval_logll,
-        newton_div_tol_default,
     )
     from metrotrpl_tpu_torch.inference.metropolis import (
         build_mh_kernel,
@@ -597,8 +797,6 @@ def main():
     from metrotrpl_tpu_torch.inference.mh_core import TorchDraws
     from metrotrpl_tpu_torch.inference.moves import n_tries
     from metrotrpl_tpu_torch.solver import solve_kernel as sk
-    from metrotrpl_tpu_torch.solver.forward import prepare_batch
-    from metrotrpl_tpu_torch.solver.sdirk import NEWTON_DAMP
     from metrotrpl_tpu_torch.workloads import STAUB_TRUE, TRAPS_TRUE
 
     dev = torch.device("cuda")
@@ -654,35 +852,15 @@ def main():
 
     plan, move, param_info, mcmc = load_plan(cfg, "std")
     plan_t, _, param_info_t, _ = load_plan(cfg_traps, "traps")
-    # the ladder's thresholds at nx=128: Newton divergence, and the
-    # cap-pinned rows that repair ungated
-    resid_tol = newton_div_tol_default(128)
-    pin = 0.97 * NEWTON_DAMP
     temps = torch.as_tensor(np.asarray(mcmc["parallel_tempering"]),
                             dtype=f32, device=dev)
 
-    def batch(pl, states, fp_x, dtype):
-        """Kernel inputs of K states x 6 measurements on plan fp_x."""
-        t = lambda a, d=dtype: torch.as_tensor(  # noqa: E731
-            np.asarray(a), dtype=d, device=dev)
-        K = states.shape[0]
-        gi = torch.as_tensor(pl.fwd[0][0], device=dev)
-        init, raw = expand_states(pl, gi, t(fp_x.x_centers), t(states),
-                                  t(pl.init_profiles), t(pl.units))
-        p, y0, dts, _ = prepare_batch(init, raw, t(fp_x.dx).repeat(K),
-                                      t(fp_x.dt).repeat(K, 1), fp_x.model)
-        kw = dict(model=fp_x.model, scheme_name=fp_x.scheme,
-                  newton_iters=fp_x.newton_iters,
-                  refactor_every=fp_x.refactor_every, n_ramp=fp_x.n_ramp,
-                  ramp_block=fp_x.ramp_block,
-                  newton_plateau=fp_x.newton_plateau)
-        return (p, y0, dts, t(fp_x.dx).repeat(K)), kw
-
     results = {}
 
-    def kernel_vs_plain(phase, pl, pinfo, truth):
+    def flagship_vs_plain(phase, pl, pinfo, truth):
         """Both instantiations of pl's model against the plain version on
-        8 states (+-0.1 dex on the active parameters) x 6 measurements."""
+        8 states (+-0.1 dex on the active parameters) x 6 measurements:
+        float32 on the fast plan, float64 on the rung plan."""
         names = list(pl.param_names)
         rng = np.random.default_rng(0)
         base = np.array([truth[n] for n in names], dtype=float)
@@ -692,64 +870,24 @@ def main():
         _, fp, fp_hi = pl.fwd[0]
         for dlabel, fp_x, dtype in (("f32", fp, f32), ("f64", fp_hi, f64)):
             label = f"{fp_x.model}_{dlabel}"
-            args, kw = batch(pl, states, fp_x, dtype)
-            run_k = lambda: sk.integrate_observables_cuda(*args, **kw)  # noqa
-            run_p = lambda: sk.integrate_observables_plain(*args, **kw)  # noqa
-            out_k = run_k()
-            out_p = run_p()
-            torch.cuda.synchronize()
-            pl_k, tr_k, rs_k = (a.double().cpu().numpy() for a in out_k)
-            pl_p, tr_p, rs_p = (a.double().cpu().numpy() for a in out_p)
-            r_k, r_p = rs_k.max(axis=0), rs_p.max(axis=0)
-            for thr in (resid_tol, pin):
-                fk, fp_ = ~(r_k < thr), ~(r_p < thr)
-                if not np.array_equal(fk, fp_):
-                    raise RuntimeError(
-                        f"{label}: rows over resid {thr} differ: kernel "
-                        f"{np.nonzero(fk)[0]} vs plain {np.nonzero(fp_)[0]}")
-            ok = r_k < resid_tol
-            if ok.sum() < 24:
-                raise RuntimeError(f"{label}: only {ok.sum()} of 48 rows "
-                                   "unflagged; the comparison would be "
-                                   "vacuous")
-            pairs = ((pl_k[:, ok], pl_p[:, ok]), (tr_k[:, ok], tr_p[:, ok]))
-            dlog = max(np.abs(np.log10(a) - np.log10(b)).max()
-                       for a, b in pairs)
-            rel = max((np.abs(a - b) / np.abs(b)).max() for a, b in pairs)
-            # float32: decades of the observables (the chord solve at
-            # nx=128 amplifies rounding); float64: relative error
-            err, limit = (dlog, 1e-4) if dlabel == "f32" else (rel, 1e-9)
-            if not (np.isfinite(pl_k[:, ok]).all() and err <= limit):
-                raise RuntimeError(f"{label}: kernel vs plain error {err} > "
-                                   f"{limit}")
-            ms = cuda_ms(run_k, 20)
-            plain_ms = cuda_ms(run_p, 1)
+            r = kernel_vs_plain(card, dev, pl, fp_x, dtype, states, label)
             ms_b9 = None
             if dlabel == "f64":
                 # the rung's rows per iteration in a profiled flagship walk
-                p9, y9, dt9, dx9 = args
+                (p9, y9, dt9, dx9), kw = kernel_inputs(dev, pl, states,
+                                                       fp_x, dtype)
                 args9 = (type(p9)(*(a[:9] for a in p9)), y9[:9], dt9[:, :9],
                          dx9[:9])
                 ms_b9 = cuda_ms(
                     lambda: sk.integrate_observables_cuda(*args9, **kw), 20)
                 print(f"phase {phase} {label}: B=9 nx=128 n_steps="
                       f"{fp_x.n_steps}: kernel {ms_b9:.3f} ms on {card}")
-            bound_ms, bound_by, flops, nbytes = solve_bound(
-                dtype, 48, 128, fp_x)
             results[label] = dict(
-                max_abs_err=float(dlog), max_rel_err=float(rel), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, ms_b9=ms_b9,
-                tolerance=(f"{'|d log10 obs|' if dlabel == 'f32' else 'rel'}"
-                           f" <= {limit:g} on rows under resid {resid_tol}; "
-                           "the same rows over it"),
-                shape=f"B=48 nx=128 n_steps={fp_x.n_steps}")
-            print(f"phase {phase} {label}: B=48 nx=128 n_steps="
-                  f"{fp_x.n_steps} flagged rows {int((~ok).sum())}; max "
-                  f"|dlog10| {dlog:.3e}, max rel err {rel:.3e} (limit "
-                  f"{limit:g}); kernel {ms:.3f} ms, plain PyTorch "
-                  f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}: {flops:.4g} FLOP, {nbytes} B) on {card}")
+                max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=None, ms_b9=ms_b9,
+                tolerance=r["tolerance"], shape=r["shape"])
+            print(f"phase {phase} {label}: {r['line']}")
 
     def walk(phase, path, run_dir, n_iters, model):
         """`cli mcmc --device cuda` on path; checks the pickle, the
@@ -808,7 +946,7 @@ def main():
                                "did not launch or a logll_T is not finite")
 
     # ---- phase 2: std kernel vs plain version at the flagship shape ----
-    kernel_vs_plain(2, plan, param_info, STAUB_TRUE)
+    flagship_vs_plain(2, plan, param_info, STAUB_TRUE)
 
     # ---- phase 3: the float64 rung on the flagship ridge states ----
     ridge = np.load(REPO / "scripts" / ".probe_r14_ridge_states.npz")
@@ -824,7 +962,7 @@ def main():
 
     # ---- phase 5: traps kernel vs plain version ----
     truth_t = {**STAUB_TRUE, **TRAPS_TRUE}
-    kernel_vs_plain(5, plan_t, param_info_t, truth_t)
+    flagship_vs_plain(5, plan_t, param_info_t, truth_t)
 
     # ---- phase 6: the traps ladder just above the mobility trigger ----
     names_t = list(plan_t.param_names)
@@ -1014,8 +1152,8 @@ def main():
         for dl, fp_x, dtype, Bs in (("f32", fp, f32, (48, 96, 192, 384)),
                                     ("f64", fp_hi, f64, (9, 72, 144))):
             label = f"{fp_x.model}_{dl}"
-            (p, y0, dts, dx), kw = batch(pl, states[:max(Bs) // 6 + 1],
-                                         fp_x, dtype)
+            (p, y0, dts, dx), kw = kernel_inputs(
+                dev, pl, states[:max(Bs) // 6 + 1], fp_x, dtype)
             occ = sk.occupancy(fp_x.model, dtype, 128)
             resident = occ["blocks_per_sm"] * n_sm
             times = {}
@@ -1043,6 +1181,11 @@ def main():
     launches_pa = phase16_pa(card, work, cli)
     dense_chunk_on_irf_plan(card, dev, plan_irf, pi_irf)
 
+    # ---- phases 17-19: the native runtime, quicksim, posterior legs ----
+    phase17_runtime(card)
+    launches_qs = phase18_quicksim(card, work)
+    launches_post, checks_post = phase19_posterior(card, dev)
+
     # one entry per instantiation; launches are each model's main-path
     # counts; max_abs_err is in decades of the observables
     launch_of = {"std": launches_std, "traps": launches_traps}
@@ -1059,9 +1202,13 @@ def main():
            for lb, ln in launches_real.items()},
         "launches_nn": launches_nn[(model, dtype)],
         "launches_pa": launches_pa[(model, dtype)],
+        "launches_quicksim": launches_qs[(model, dtype)],
+        **{f"launches_posterior_{m}": ln[(model, dtype)]
+           for m, ln in launches_post.items()},
         "ms_by_batch": by_batch[f"{model}_{dl}"]["ms"],
         "blocks_per_sm": by_batch[f"{model}_{dl}"]["blocks_per_sm"],
         **results[f"{model}_{dl}"],
+        "posterior_shapes": (checks_post[model] if dtype == f32 else []),
     } for model in ("std", "traps") for dl, dtype in (("f32", f32),
                                                        ("f64", f64))]
     print(json.dumps({"kernels": kernels}))

@@ -12,13 +12,7 @@ import sys
 
 import numpy as np
 
-
-def load_csv(path, delimiter=","):
-    """Load a numeric CSV into a float64 array: (rows, cols), or 1-D for a
-    single row or column. The JAX package's ``runtime.load_csv`` has a
-    native parser in front of this ``np.loadtxt`` path; the two give the
-    same arrays (tests/test_torch_config.py)."""
-    return np.loadtxt(path, delimiter=delimiter)
+from metrotrpl_tpu_torch.runtime import load_csv
 
 
 def get_data(exp_file, ic_flags, MCMC_fields, rng=None):

@@ -5,7 +5,8 @@ Implements the same physics equations as the reference forward solver
 :374-418 traps RHS, :41-225 solve routine) in vectorized float64 numpy with
 scipy ``solve_ivp``. Used as ground truth for the TPU stepper's accuracy
 tests and as the measured CPU baseline for the benchmark. Copy of
-``metrotrpl_tpu/oracle/scipy_reference.py`` without its compiled std RHS.
+``metrotrpl_tpu/oracle/scipy_reference.py``; its ``rhs="native"`` std RHS
+is the port's ``runtime/refrhs.cpp``.
 
 Internal units: nm, V, ns (same convention as the reference).
 """
@@ -117,7 +118,8 @@ def beer_lambert(fluence, alpha, x_centers, direction=1):
 
 def solve_reference(init_dN, thickness, nx, t_out, params, meas="TRPL",
                     model="std", hmax=4.0, rtol=DEFAULT_RTOL,
-                    atol=DEFAULT_ATOL, min_y=None, stats=None):
+                    atol=DEFAULT_ATOL, min_y=None, stats=None,
+                    rhs="numpy"):
     """Solve one simulation with scipy LSODA and return the observable
     in measurement units ([cm^-2 s^-1] for TRPL).
 
@@ -140,9 +142,19 @@ def solve_reference(init_dN, thickness, nx, t_out, params, meas="TRPL",
               params["Cn"], params["Cp"], params["Sf"], params["Sb"],
               params["tauN"], params["tauP"], lam, params["Tm"])
 
+    if rhs not in ("numpy", "native"):
+        raise ValueError(f"rhs must be 'numpy' or 'native', got {rhs!r}")
     if model == "std":
         y0 = np.concatenate([N, P, E])
         fun = lambda t, y: dydt_std(t, y, *common)
+        if rhs == "native":
+            # same equations compiled (runtime/refrhs.cpp) — ~10x less
+            # Python-callback overhead per LSODA RHS call; falls back to
+            # the numpy RHS when the native toolchain is unavailable
+            from metrotrpl_tpu_torch.runtime import make_native_rhs_std
+            nf = make_native_rhs_std(nx, dx, params)
+            if nf is not None:
+                fun = nf
     elif model == "traps":
         y0 = np.concatenate([N, np.zeros_like(N), P, E])
         fun = lambda t, y: dydt_traps(

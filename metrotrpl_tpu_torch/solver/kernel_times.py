@@ -55,6 +55,146 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+#: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit):
+#: non-tensor-core FLOP/s per scalar size in bytes (float32, float64),
+#: and the HBM rate in bytes/s
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
+PEAK_BYTES = 3.35e12
+
+
+def cuda_ms(fn, n):
+    """Mean milliseconds of fn() over n runs, by CUDA events, after one
+    warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def solve_bound(dtype, B, nx, fp_x):
+    """(bound_ms, bound_by, flops, bytes) of one kernel call on plan fp_x:
+    the larger of the FLOPs it needs (solve_kernel.solve_flops, on this
+    plan's steps, Newton iterations and factorizations) over the peak for
+    its type, and of its bytes (inputs read once, outputs written once)
+    over the memory rate."""
+    import torch
+
+    from metrotrpl_tpu_torch.physics.models import N_COMP
+    from metrotrpl_tpu_torch.solver.solve_kernel import solve_flops
+
+    flops = B * solve_flops(
+        fp_x.model, nx, fp_x.n_steps, scheme_name=fp_x.scheme,
+        newton_iters=fp_x.newton_iters, refactor_every=fp_x.refactor_every,
+        n_ramp=fp_x.n_ramp, ramp_block=fp_x.ramp_block,
+        newton_plateau=fp_x.newton_plateau)
+    n, nc = fp_x.n_steps, N_COMP[fp_x.model]
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (B * n + B * nc * nx + B * 17 + B + 3 * B * (n + 1))
+    t_ops, t_mem = flops / PEAK_FLOPS[size], nbytes / PEAK_BYTES
+    return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem
+            else "bytes", flops, nbytes)
+
+
+def kernel_inputs(dev, pl, states, fp_x, dtype):
+    """Kernel arguments and keywords of K states x the measurements of
+    pl's first solve group on plan fp_x."""
+    import numpy as np
+    import torch
+
+    from metrotrpl_tpu_torch.inference.likelihood import expand_states
+    from metrotrpl_tpu_torch.solver.forward import prepare_batch
+
+    def t(a, d=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=d, device=dev)
+
+    K = states.shape[0]
+    gi = torch.as_tensor(pl.fwd[0][0], device=dev)
+    init, raw = expand_states(pl, gi, t(fp_x.x_centers), t(states),
+                              t(pl.init_profiles), t(pl.units))
+    p, y0, dts, _ = prepare_batch(init, raw, t(fp_x.dx).repeat(K),
+                                  t(fp_x.dt).repeat(K, 1), fp_x.model)
+    kw = dict(model=fp_x.model, scheme_name=fp_x.scheme,
+              newton_iters=fp_x.newton_iters,
+              refactor_every=fp_x.refactor_every, n_ramp=fp_x.n_ramp,
+              ramp_block=fp_x.ramp_block,
+              newton_plateau=fp_x.newton_plateau)
+    return (p, y0, dts, t(fp_x.dx).repeat(K)), kw
+
+
+def kernel_vs_plain(card, dev, pl, fp_x, dtype, states, label):
+    """One instantiation of the solve kernel against its plain version on
+    K states x the measurements of pl's first solve group, on plan fp_x.
+    The rows over the Newton thresholds (the ladder's nx-aware divergence
+    threshold and the 0.97*cap pin) must be the same rows, at least half
+    the rows must be under them, and on those the observables must agree
+    (float32: |d log10| <= 1e-4, the chord solve amplifying rounding;
+    float64: rel <= 1e-9). Returns the comparison's numbers, the kernel's
+    CUDA-event ms (20 runs after a warm-up), the plain version's (the
+    compared call), the bound and a printable line."""
+    import numpy as np
+    import torch
+
+    from metrotrpl_tpu_torch.inference.likelihood import (
+        newton_div_tol_default,
+    )
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+    from metrotrpl_tpu_torch.solver.sdirk import NEWTON_DAMP
+
+    args, kw = kernel_inputs(dev, pl, states, fp_x, dtype)
+    resid_tol, pin = newton_div_tol_default(fp_x.nx), 0.97 * NEWTON_DAMP
+    out_k = sk.integrate_observables_cuda(*args, **kw)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out_p = sk.integrate_observables_plain(*args, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    pl_k, tr_k, rs_k = (a.double().cpu().numpy() for a in out_k)
+    pl_p, tr_p, rs_p = (a.double().cpu().numpy() for a in out_p)
+    B = pl_k.shape[1]
+    r_k, r_p = rs_k.max(axis=0), rs_p.max(axis=0)
+    for thr in (resid_tol, pin):
+        fk, fp_ = ~(r_k < thr), ~(r_p < thr)
+        if not np.array_equal(fk, fp_):
+            raise RuntimeError(
+                f"{label}: rows over resid {thr} differ: kernel "
+                f"{np.nonzero(fk)[0]} vs plain {np.nonzero(fp_)[0]}")
+    ok = r_k < resid_tol
+    if 2 * ok.sum() < B:
+        raise RuntimeError(f"{label}: only {ok.sum()} of {B} rows "
+                           "unflagged; the comparison would be vacuous")
+    pairs = ((pl_k[:, ok], pl_p[:, ok]), (tr_k[:, ok], tr_p[:, ok]))
+    dlog = max(np.abs(np.log10(a) - np.log10(b)).max() for a, b in pairs)
+    rel = max((np.abs(a - b) / np.abs(b)).max() for a, b in pairs)
+    f32 = dtype == torch.float32
+    err, limit = (dlog, 1e-4) if f32 else (rel, 1e-9)
+    if not (np.isfinite(pl_k[:, ok]).all() and err <= limit):
+        raise RuntimeError(f"{label}: kernel vs plain error {err} > {limit}")
+    ms = cuda_ms(lambda: sk.integrate_observables_cuda(*args, **kw), 20)
+    bound_ms, bound_by, flops, nbytes = solve_bound(dtype, B, fp_x.nx, fp_x)
+    shape = f"B={B} nx={fp_x.nx} n_steps={fp_x.n_steps}"
+    return dict(
+        max_abs_err=float(dlog), max_rel_err=float(rel), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        flagged=int((~ok).sum()), shape=shape,
+        tolerance=(f"{'|d log10 obs|' if f32 else 'rel'} <= {limit:g} on "
+                   f"rows under resid {resid_tol}; the same rows over it"),
+        line=(f"{shape} flagged rows {int((~ok).sum())}; max |dlog10| "
+              f"{dlog:.3e}, max rel err {rel:.3e} (limit {limit:g}); "
+              f"kernel {ms:.3f} ms, plain PyTorch {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP, {nbytes} "
+              f"B) on {card}"))
+
+
 def make_inputs(work):
     """The 48-row kernel inputs of both models on both plans, as CPU
     tensors: {(model, dtag): (params list, y0, dts, dx, kwargs)}."""

@@ -26,8 +26,8 @@ FLUENCES = os.path.join(INPUTS,
     f for f in os.listdir(os.path.join(REPO, "Inputs"))
     if f.endswith(".csv")))
 def test_load_csv_equals_jax_runtime(name):
-    """The port's np.loadtxt CSV reader gives the JAX package's arrays
-    (its native parser) on every CSV in Inputs/, shape and bits."""
+    """The port's CSV reader (its native parser, runtime.load_csv) gives
+    the JAX package's arrays on every CSV in Inputs/, shape and bits."""
     path = os.path.join(INPUTS, name)
     mine, ref = tcfg.data_io.load_csv(path), j_load_csv(path)
     assert mine.shape == ref.shape and mine.dtype == ref.dtype

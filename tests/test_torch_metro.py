@@ -70,7 +70,9 @@ def test_metro_resume_repeats_uninterrupted_walk(tmp_path):
 
 def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
     """With jax and the JAX package unimportable, every port module (the
-    surrogate and the IRF oracle included) and chip_smoke.py import,
+    surrogate, the IRF oracle, the GUI and the native runtime included),
+    chip_smoke.py and scripts/posterior_torch.py import, the native CSV
+    parser loads a file,
     write-example writes the flagship config (with stand-in data),
     write_example_config the traps config, the port reads both and builds
     their likelihood and move plans, and the evaluation tensors are made
@@ -93,7 +95,17 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         assert "metrotrpl_tpu_torch.inference.mle" in names
         assert "metrotrpl_tpu_torch.surrogate" in names
         assert "metrotrpl_tpu_torch.oracle.irf_reference" in names
+        for m in ("gui", "gui.main", "gui.plots", "gui.popups",
+                  "gui.quicksim", "gui.rclickmenu",
+                  "gui.secondary_parameters", "gui.styles", "gui.window",
+                  "runtime"):
+            assert "metrotrpl_tpu_torch." + m in names, m
         import chip_smoke
+        sys.path.insert(0, "scripts")
+        import posterior_torch
+        from metrotrpl_tpu_torch.runtime import load_csv, native_available
+        assert native_available()
+        assert load_csv("Inputs/real_staub_input.csv").shape[0] > 0
         from metrotrpl_tpu_torch.cli import main, write_example_config
         d = {str(tmp_path)!r}
         t = np.linspace(0, 2000, 501)

@@ -278,3 +278,38 @@ class JaxReplayDraws:
         t = lambda a: torch.as_tensor(a, dtype=self.tdtype)  # noqa: E731
         return IterDraws(t(us), t(ums), t(ua),
                          torch.as_tensor(si, dtype=torch.int64), t(su))
+
+
+def quicksim_tasks(tq, model, nx):
+    """Two quicksim tasks of quicksim module tq (the port's or the JAX
+    package's) at the staub truth (the trap parameters added for traps):
+    different thickness, fluence, direction and length."""
+    p = dict(STAUB_TRUE, **({k: TRAPS_TRUTH[k] for k in ("kC", "Nt", "tauE")}
+                            if model == "traps" else {}))
+    return [tq.QuicksimTask(thickness=311, nx=nx, final_time=200, nt=21,
+                            fluence=2.12e11, absp=6e4, direction=1,
+                            params=p, model=model),
+            tq.QuicksimTask(thickness=2000, nx=nx, final_time=150, nt=16,
+                            fluence=1e12, absp=3e4, direction=-1,
+                            params=dict(p, mu_n=35.0, tauN=300.0),
+                            model=model)]
+
+
+def assert_run_tasks_equal_jax(model):
+    """The port's run_tasks(device="cpu") at float64 and nx=16: each curve
+    equals the JAX package's run_tasks within rel 1e-9 (two tasks in one
+    batch); scale factors multiply."""
+    from metrotrpl_tpu.gui import quicksim as jqs
+    from metrotrpl_tpu_torch.gui import quicksim as tqs
+
+    mine = tqs.run_tasks(quicksim_tasks(tqs, model, 16), device="cpu")
+    ref = jqs.run_tasks(quicksim_tasks(jqs, model, 16))
+    assert len(mine) == 2
+    for (tm, sm), (tj, sj) in zip(mine, ref):
+        np.testing.assert_array_equal(tm, tj)
+        assert sm.shape == sj.shape and np.isfinite(sm).all()
+        assert np.max(np.abs(sm - sj) / np.abs(sj)) <= 1e-9
+    scaled = tqs.run_tasks(quicksim_tasks(tqs, model, 16),
+                           scale_factors=[2.0, None], device="cpu")
+    np.testing.assert_allclose(scaled[0][1], 2 * mine[0][1], rtol=1e-12)
+    np.testing.assert_array_equal(scaled[1][1], mine[1][1])
