@@ -106,9 +106,21 @@ Phases, each of which raises on failure:
     leg's last 32 states x its curves on the three plans the full legs
     run: the fast plan (B=192 std, 64 traps), its ladder's chord-free
     plan and the gold leg's plan; error, ms and bound per shape.
+20. The sharded walk (metrotrpl_tpu_torch/parallel) on the one card:
+    metro(mesh_shape=...) on the flagship config, E=2 x 8 chains, every
+    rank on cuda:0, at 1x1 (NCCL, a world of one), 2x1 and 1x2 (gloo:
+    NCCL refuses two ranks on one GPU; 2x2 would pass the phase's 90 s,
+    MESH_LAYOUTS): 50 iterations, then 50 more resumed from the
+    per-replica checkpoints. History and swap
+    counters must equal the fused metro(n_ensembles=2) walk of 100
+    iterations bit for bit after each half; each rank's std float kernel
+    must launch once per iteration on E_l*K_l*6 rows, the rung at least
+    once per layout. Aggregate walker-steps/s per layout (with the
+    spawn, and inside the ranks' walks) beside the fused walk's.
 
 Launch counts are zeroed just before each main path (phases 4, 7, 8, 10,
-11, 13-16, 18 and each leg of 19) and read just after it. The last three lines of standard output are the
+11, 13-16, 18, each leg of 19, and in each rank of 20) and read just
+after it. The last three lines of standard output are the
 kernels JSON object (one entry per instantiation, with its launches on
 its main path, its error against the plain version, CUDA-event times of
 kernel and plain version, and its bound: the larger of the FLOPs it needs
@@ -150,6 +162,12 @@ N_ITERS_NN = 200       # NN surrogate walk
 N_ITERS_PA = 500       # pa toy walk
 N_ITERS_POST = 1000    # the std posterior fast leg (32 chains)
 N_ITERS_POST_TRAPS = 500   # the traps posterior fast leg (32 chains)
+N_ITERS_MESH = 100     # the sharded walk, 50 + 50 resumed
+# (d_e, d_c, whether every rank shares cuda:0 (else rank r has cuda:r));
+# 2x2 on the one card is left out: with it the phase took 102.6 s, past
+# its 90 s
+MESH_LAYOUTS = ((1, 1, True), (2, 1, True), (1, 2, True))
+MESH_SEED = 88
 
 #: the reference-pinned likelihood fixtures (reference
 #: Tests/test_eval_trial_move.py, as tests/test_reference_parity.py:64-186
@@ -774,6 +792,141 @@ def phase19_posterior(card, dev):
     return launches, checks
 
 
+def phase20_mesh(card, work, fluences, layouts=MESH_LAYOUTS):
+    """The sharded flagship walk: metro(mesh_shape=...), E=2 ensembles x
+    8 chains, the float64 rung on, at each of layouts ((d_e, d_c, shared):
+    by default 1x1 (NCCL, a world of one), 2x1 and 1x2 (gloo, ranks
+    sharing cuda:0); scripts/mesh_cards.py gives a card per rank on a
+    host with several). Each layout walks 50
+    iterations, then resumes from its per-replica checkpoints to 100; its
+    History (states, ll, accepts, swap counters) must equal the fused
+    metro(n_ensembles=2) walk of 100 iterations at the same seeds bit for
+    bit, after the first half and after the resume. Each rank's report
+    (mesh_rank{r}.json) gives its backend and its launches and rows: the
+    std float kernel must launch once per iteration per rank on E_l*K_l*6
+    rows, the std double kernel (the rung) at least once in the layout.
+    Returns {layout: summed (model, dtype) launches of its ranks}."""
+    import json
+
+    import numpy as np
+
+    from metrotrpl_tpu_torch.cli import _load_common, write_example_config
+    from metrotrpl_tpu_torch.inference.metropolis import metro
+    from metrotrpl_tpu_torch.parallel import mesh_backend, mesh_devices
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    tags = {"std_f32": ("std", f32), "std_f64": ("std", f64),
+            "traps_f32": ("traps", f32), "traps_f64": ("traps", f64)}
+    fields = ("states", "loglikelihood", "accept", "swap_attempts",
+              "swap_accept")
+    configs = {}
+    for n in (N_ITERS_MESH // 2, N_ITERS_MESH):
+        path = work / f"mesh{n}.txt"
+        write_example_config(str(path), model="std", fast=True, num_iters=n,
+                             init_cond=str(fluences),
+                             measurement=str(work / "staub_nonoise.csv"),
+                             output=str(work / "mesh"),
+                             checkpoint_freq=N_ITERS_MESH // 2)
+        configs[n] = _load_common(str(path))
+
+    def walk(n, out, load=None, **kw):
+        sim, pi, _f, mc, ini, ed = configs[n]
+        t0 = time.perf_counter()
+        enss = metro(sim, ini, ed, dict(mc, output_path=str(work / out),
+                                        load_checkpoint=load), pi,
+                     device="cuda", trap_signals=False, seed=MESH_SEED,
+                     n_ensembles=2, **kw)
+        torch.cuda.synchronize()
+        return enss, time.perf_counter() - t0
+
+    sk.reset_launch_counts()
+    ref, ref_s = walk(N_ITERS_MESH, "mesh_fused")
+    K = ref[0].H.accept.shape[0]
+    steps = N_ITERS_MESH * K * 2
+    print(f"phase 20: fused metro(n_ensembles=2), {N_ITERS_MESH} iterations "
+          f"x {K} chains: {steps / ref_s:.1f} aggregate walker-steps/s (plan "
+          f"build and first evaluation included) on {card}; launches std "
+          f"f32 {sk.LAUNCHES[('std', f32)]} f64 {sk.LAUNCHES[('std', f64)]}")
+
+    def same(enss, upto, label):
+        """History to iteration upto (and the swap counters, at the end)
+        against the fused walk's."""
+        for e, (x, y) in enumerate(zip(enss, ref)):
+            for a in fields[:3] if upto < N_ITERS_MESH else fields:
+                u, v = getattr(x.H, a), getattr(y.H, a)
+                if a in fields[:3]:
+                    u, v = u[..., :upto], v[..., :upto]
+                if not np.array_equal(u, v):
+                    bad = np.argwhere(u != v)[0].tolist()
+                    raise RuntimeError(
+                        f"phase 20 {label}: replica {e} {a} differs from the "
+                        f"fused walk's, first at {bad}: {u[tuple(bad)]!r} vs "
+                        f"{v[tuple(bad)]!r}")
+
+    launches = {}
+    for d_e, d_c, shared in layouts:
+        n_ranks = d_e * d_c
+        label = f"{d_e}x{d_c}" + ("" if shared or n_ranks == 1
+                                  else "_own_cards")
+        devices = ["cuda:0"] * n_ranks if shared else None
+        want_backend = mesh_backend(mesh_devices((d_e, d_c), devices))
+        out = f"mesh_{label}"
+        tot = {k: 0 for k in tags.values()}
+        reports, secs = [], []
+        for n, load in ((N_ITERS_MESH // 2, None),
+                        (N_ITERS_MESH, "CPU{e}-final.pik")):
+            enss, s = walk(n, out, load, mesh_shape=(d_e, d_c),
+                           devices=devices)
+            secs.append(s)
+            same(enss, n, f"{label} after {n} iterations")
+            reps = []
+            for r in range(n_ranks):
+                with open(work / out / f"mesh_rank{r}.json") as f:
+                    reps.append(json.load(f))
+            rows_per_launch = (2 // d_e) * (K // d_c) * 6
+            for rep in reps:
+                n32 = rep["launches"]["std_f32"]
+                if (rep["backend"] != want_backend or n32 != N_ITERS_MESH // 2
+                        or rep["rows"]["std_f32"] != n32 * rows_per_launch):
+                    raise RuntimeError(
+                        f"phase 20 {label}: rank {rep['rank']} ran "
+                        f"{rep['backend']} with {n32} std f32 launches on "
+                        f"{rep['rows']['std_f32']} rows (want {want_backend},"
+                        f" {N_ITERS_MESH // 2} launches of "
+                        f"{rows_per_launch} rows)")
+                for key, v in rep["launches"].items():
+                    tot[tags[key]] += v
+            reports.append(reps)
+        if tot[("std", f64)] < 1:
+            raise RuntimeError(f"phase 20 {label}: the float64 rung never "
+                               "launched")
+        launches[label] = tot
+        in_rank = [max(r["walk_s"] for r in reps) for reps in reports]
+        print(f"phase 20 {label}: {n_ranks} rank(s) on "
+              f"{devices or 'a card each'}, backend "
+              f"{reports[0][0]['backend']}: {N_ITERS_MESH // 2} + "
+              f"{N_ITERS_MESH // 2} iterations resumed from "
+              f"CPU{{e}}-final.pik equal the fused walk bit for bit (History "
+              f"and swap counters, after each half); "
+              f"{steps / sum(secs):.1f} aggregate walker-steps/s with spawn "
+              f"({secs[0]:.2f} + {secs[1]:.2f} s), "
+              f"{steps / sum(in_rank):.1f} inside the ranks' walks "
+              f"({in_rank[0]:.2f} + {in_rank[1]:.2f} s) against the fused "
+              f"walk's {steps / ref_s:.1f}, on {card}; per rank std f32 / f64 "
+              "launches (first half + resume): " + "; ".join(
+                  f"rank {a['rank']} ({a['i_e']},{a['i_c']}) "
+                  f"{a['launches']['std_f32']}+{b['launches']['std_f32']} on "
+                  f"{a['rows']['std_f32'] // max(a['launches']['std_f32'], 1)}"
+                  f" rows / {a['launches']['std_f64']}+"
+                  f"{b['launches']['std_f64']} on "
+                  f"{a['rows']['std_f64'] + b['rows']['std_f64']} rows"
+                  for a, b in zip(*reports)))
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1186,6 +1339,9 @@ def main():
     launches_qs = phase18_quicksim(card, work)
     launches_post, checks_post = phase19_posterior(card, dev)
 
+    # ---- phase 20: the sharded walk on one card ----
+    launches_mesh = phase20_mesh(card, work, fluences)
+
     # one entry per instantiation; launches are each model's main-path
     # counts; max_abs_err is in decades of the observables
     launch_of = {"std": launches_std, "traps": launches_traps}
@@ -1205,6 +1361,8 @@ def main():
         "launches_quicksim": launches_qs[(model, dtype)],
         **{f"launches_posterior_{m}": ln[(model, dtype)]
            for m, ln in launches_post.items()},
+        **{f"launches_mesh_{lb}": ln[(model, dtype)]
+           for lb, ln in launches_mesh.items()},
         "ms_by_batch": by_batch[f"{model}_{dl}"]["ms"],
         "blocks_per_sm": by_batch[f"{model}_{dl}"]["blocks_per_sm"],
         **results[f"{model}_{dl}"],

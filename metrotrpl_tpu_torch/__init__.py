@@ -13,6 +13,8 @@ kernel wrapper runs its plain PyTorch version for CPU tensors, so the CPU
 tests exercise the same code paths.
 """
 
+import math
+
 import torch
 
 __version__ = "0.1.0"
@@ -35,3 +37,17 @@ def default_walk_dtype(device):
     on the accelerator, float64 on the CPU where it costs little."""
     return torch.float32 if torch.device(device).type == "cuda" \
         else torch.float64
+
+
+_LN10 = math.log(10.0)
+
+
+def pow10(x):
+    """``10 ** x`` elementwise, each element's value independent of the
+    tensor it sits in. On the CPU ``torch.pow`` computes the SIMD body of
+    a tensor (Sleef) and its last few elements (libm) with different
+    code, so one element's ``10 ** x`` could move by an ulp with the
+    batch's size, and a walk with it; ``torch.exp`` runs its tail through
+    the vector code too. Every per-row ``10 **`` of the walk goes through
+    here."""
+    return torch.exp(x * _LN10)

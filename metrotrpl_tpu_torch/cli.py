@@ -1,6 +1,7 @@
 """Command-line entry points of the port.
 
     python -m metrotrpl_tpu_torch.cli mcmc <config.txt> [--ensembles E]
+                                            [--mesh ExC [--mesh-devices ...]]
     python -m metrotrpl_tpu_torch.cli dense <config.txt>
     python -m metrotrpl_tpu_torch.cli mle <config.txt> [--maxiter N]
     python -m metrotrpl_tpu_torch.cli write-example <out.txt> [--fast]
@@ -80,9 +81,10 @@ def _resolve_out(args):
 def cmd_mcmc(args):
     from metrotrpl_tpu_torch.inference.metropolis import metro
 
+    mesh_shape = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh (the sharded multi-device walk) is not ported yet")
+        d_e, _, d_c = args.mesh.lower().partition("x")
+        mesh_shape = (int(d_e), int(d_c))
     jobid = _resolve_jobid(args)
     (sim_info, param_info, _meas, MCMC_fields,
      iniPar, e_data) = _load_common(_resolve_config(args.config, jobid))
@@ -99,7 +101,9 @@ def cmd_mcmc(args):
           verbose=args.verbose, export_path=export_paths[0],
           device=args.device, logger_name=f"Ensemble{jobid}", seed=seeds[0],
           seeds=seeds, export_paths=export_paths, irf_dir=args.irf_dir,
-          n_ensembles=n_ens)
+          n_ensembles=n_ens, mesh_shape=mesh_shape,
+          devices=(args.mesh_devices.split(",") if args.mesh_devices
+                   else None))
     print(f"Done. Outputs in {MCMC_fields['output_path']}: "
           f"{', '.join(export_paths)}")
 
@@ -430,9 +434,16 @@ def main(argv=None):
                 "--ensembles", type=int, default=1,
                 help="independent MH replicas fused into one solve batch; "
                      "replica j gets seed+j and its own CPU{j}-final.pik")
-            sp.add_argument("--mesh", default=None,
-                            help="the sharded multi-device walk: not "
-                                 "ported yet")
+            sp.add_argument(
+                "--mesh", default=None, metavar="ExC",
+                help="the sharded walk: E x C processes, splitting the "
+                     "ensembles E ways and the tempered chains C ways; "
+                     "the same replicas and result as --ensembles alone")
+            sp.add_argument(
+                "--mesh-devices", default=None, metavar="DEV,DEV,...",
+                help="one device per mesh rank, e.g. cuda:0,cuda:0 for "
+                     "ranks that share a card (default: a card of its own "
+                     "per rank, or the CPU with --device cpu)")
         if name == "mle":
             sp.add_argument("--maxiter", type=int, default=None)
         sp.set_defaults(fn=fn)

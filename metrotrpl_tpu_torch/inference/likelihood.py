@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from metrotrpl_tpu_torch import resolve_device
+from metrotrpl_tpu_torch import pow10, resolve_device
 from metrotrpl_tpu_torch.constants import NEGATIVE_FRAC_TOL
 from metrotrpl_tpu_torch.ops.convolve import convolve_moments
 from metrotrpl_tpu_torch.ops.interp import interp1d
@@ -504,7 +504,7 @@ def _make_compare_pipeline(plan, dtype, device):
         if plan.force_min_y:
             vals_min = torch.amin(
                 torch.where(valid, b_vals, torch.inf), dim=1)
-            min_y = 10.0 ** (vals_min - scale_shift)
+            min_y = pow10(vals_min - scale_shift)
             i_final = torch.sum((sol_cmp > min_y[:, None]) & valid, dim=1)
             pos = torch.cumsum(valid.to(torch.int64), dim=1) - 1
             clamp = valid & (pos >= i_final[:, None])

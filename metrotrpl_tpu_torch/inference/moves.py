@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from metrotrpl_tpu_torch import pow10
 from metrotrpl_tpu_torch.constants import MAX_PROPOSALS
 
 
@@ -83,7 +84,7 @@ def approve_move(new_state_t, plan):
     active = torch.as_tensor(plan.active, device=dev)
     lb = torch.as_tensor(plan.lb, dtype=torch.float64, device=dev)
     ub = torch.as_tensor(plan.ub, dtype=torch.float64, device=dev)
-    raw = torch.where(do_log, 10.0 ** new_state_t, new_state_t)
+    raw = torch.where(do_log, pow10(new_state_t), new_state_t)
     in_bounds = (lb < raw) & (raw < ub)
     ok = torch.all(torch.where(active, in_bounds, True), dim=-1)
 
@@ -120,7 +121,7 @@ def make_trial_move(state, move_width, u, u_mu, plan):
         hi = torch.tensor(ambi + width, dtype=dtype, device=dev)
         muambi = torch.maximum(lo, u_mu * (hi - lo) + lo)       # (T, K)
         # mu_p from the ambipolar relation 2/mu_ambi = 1/mu_n + 1/mu_p
-        mu_p = 1.0 / (2.0 / muambi - 1.0 / 10.0 ** new[..., plan.mu_n_idx])
+        mu_p = 1.0 / (2.0 / muambi - 1.0 / pow10(new[..., plan.mu_n_idx]))
         new = new.clone()
         new[..., plan.mu_p_idx] = torch.log10(mu_p)
     ok = approve_move(new, plan)                                 # (T, K)
@@ -129,7 +130,7 @@ def make_trial_move(state, move_width, u, u_mu, plan):
     first_ok = torch.argmax(ok.to(torch.int32), dim=0)
     pick = torch.where(ok.any(dim=0), first_ok, T - 1)
     chosen = new[pick, torch.arange(new.shape[1], device=dev)]  # (K, P)
-    out = torch.where(do_log, 10.0 ** chosen, chosen)
+    out = torch.where(do_log, pow10(chosen), chosen)
     moved = move_width > 0
     if plan.mu_constraint is not None:
         moved = moved | (torch.arange(len(plan.do_log), device=dev)

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from metrotrpl_tpu_torch import pow10
+
 
 class NeuralNetwork(nn.Module):
     """Counterpart of the JAX ``NeuralNetwork`` (reference
@@ -101,8 +103,8 @@ class NeuralNetwork(nn.Module):
         coefficients (reference nn_features.py:54-64)."""
         out = (outputs + 0.5) * self.out_width + self.out_shift
         half = out.shape[-1] // 2
-        rates = -(10.0 ** out[..., :half])
-        coefs = 10.0 ** out[..., half:]
+        rates = -pow10(out[..., :half])
+        coefs = pow10(out[..., half:])
         return torch.cat([rates, coefs], dim=-1)
 
     def predict(self, t_steps, inputs):

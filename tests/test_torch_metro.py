@@ -98,7 +98,8 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         for m in ("gui", "gui.main", "gui.plots", "gui.popups",
                   "gui.quicksim", "gui.rclickmenu",
                   "gui.secondary_parameters", "gui.styles", "gui.window",
-                  "runtime"):
+                  "runtime", "parallel", "parallel.mesh",
+                  "parallel.sharded_mh"):
             assert "metrotrpl_tpu_torch." + m in names, m
         import chip_smoke
         sys.path.insert(0, "scripts")

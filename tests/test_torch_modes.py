@@ -7,7 +7,6 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from torch_parity import param_info, rel_err, synth_config
 
@@ -101,13 +100,13 @@ def test_mle_matches_jax(tmp_path):
 
 def test_cli_inference_commands(tmp_path):
     """cli mcmc --ensembles 2 under array task 3 writes replicas 6 and 7
-    (seeds 5 + 6 and 5 + 7: distinct walks); cli dense and cli mle write
-    their outputs; --mesh and mesh_shape raise NotImplementedError; a pa
-    config builds a plan with no solve group."""
+    (seeds 5 + 6 and 5 + 7: distinct walks), and the same command with
+    --mesh 1x2 --mesh-devices cpu,cpu (two gloo ranks, one chain each)
+    writes the same two checkpoints bit for bit; cli dense and cli mle
+    write their outputs; a pa config builds a plan with no solve group."""
     from metrotrpl_tpu_torch.cli import main
     from metrotrpl_tpu_torch.config import generate_config_script_file
     from metrotrpl_tpu_torch.inference.likelihood import build_likelihood_plan
-    from metrotrpl_tpu_torch.inference.metropolis import metro
 
     sim_info, pi, flags, e_data, iniPar = _problem(tmp_path / "out", 6)
     t, v, _ = e_data
@@ -130,6 +129,17 @@ def test_cli_inference_commands(tmp_path):
     assert [e.ensemble_fields["_rng_seed"] for e in (e6, e7)] == [11, 12]
     assert e6.H.states.shape == (2, len(pi["names"]), 6)
     assert not np.array_equal(e6.H.states, e7.H.states)
+    os.remove(out / "CPU6-final.pik")
+    main(["mcmc", cfg, "--jobid", "3", "--ensembles", "2", "--seed", "5",
+          "--device", "cpu", "--mesh", "1x2", "--mesh-devices", "cpu,cpu"])
+    for j, ref in ((6, e6), (7, e7)):
+        m = j_load(str(out / f"CPU{j}-final.pik"))
+        assert m.ensemble_fields["_rng_seed"] == ref.ensemble_fields[
+            "_rng_seed"]
+        for a in ("states", "loglikelihood", "accept", "swap_attempts",
+                  "swap_accept"):
+            np.testing.assert_array_equal(getattr(m.H, a), getattr(ref.H, a),
+                                          err_msg=a)
 
     main(["dense", cfg, "--jobid", "2", "--device", "cpu"])
     P = np.load(out / "CPU2_P.npy")
@@ -138,11 +148,6 @@ def test_cli_inference_commands(tmp_path):
     main(["mle", cfg, "--maxiter", "2", "--device", "cpu"])
     assert j_load(str(out / "MLE0-final.pik")).latest_iter > 2
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        main(["mcmc", cfg, "--mesh", "2x4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        metro(sim_info, iniPar, e_data, flags, pi, device="cpu",
-              n_ensembles=2, mesh_shape=(2, 1))
     pa_plan = build_likelihood_plan(dict(sim_info, meas_types=["pa"]), pi,
                                     flags, e_data, iniPar)
     assert pa_plan.kind == "pa" and pa_plan.fwd is None

@@ -226,9 +226,11 @@ class JaxReplayDraws:
     """Draw source for the port's MH window that recomputes the JAX
     window's keyed stream (metrotrpl_tpu/inference/mh_core.py:147-201 and
     moves.py:145-174) with jax.random, so a port walk consumes exactly the
-    numbers the JAX walk did. Single ensemble (e = 0)."""
+    numbers the JAX walk did: global ensemble ``ens`` of the stream keyed
+    by ``seed`` (the single-device window's e = 0 by default; a sharded
+    JAX window folds in every ensemble's global index)."""
 
-    def __init__(self, seed, n_chains, n_params, n_cand, dtype):
+    def __init__(self, seed, n_chains, n_params, n_cand, dtype, ens=0):
         self.base_key = jax.random.PRNGKey(seed % (2 ** 63))
         self.K, self.P, self.T = n_chains, n_params, n_cand
         self.jdtype = jnp.float64 if dtype == torch.float64 else jnp.float32
@@ -240,7 +242,7 @@ class JaxReplayDraws:
             k_prop, k_acc, k_swap = jax.random.split(key_iter, 3)
 
             def chain_props(c):
-                kk = jax.random.fold_in(jax.random.fold_in(k_prop, 0), c)
+                kk = jax.random.fold_in(jax.random.fold_in(k_prop, ens), c)
 
                 def step(key, _):
                     key, k1, k2 = jax.random.split(key, 3)
@@ -253,7 +255,7 @@ class JaxReplayDraws:
 
             us, ums = jax.vmap(chain_props)(jnp.arange(K))   # (K,T,P),(K,T)
             u_acc = jax.vmap(lambda c: jax.random.uniform(
-                jax.random.fold_in(jax.random.fold_in(k_acc, 0), c), (),
+                jax.random.fold_in(jax.random.fold_in(k_acc, ens), c), (),
                 jdt))(jnp.arange(K))
 
             def swap_step(key, _):
@@ -263,7 +265,7 @@ class JaxReplayDraws:
                 return key, (i, u)
 
             _, (si, su) = jax.lax.scan(
-                swap_step, jax.random.fold_in(k_swap, 0), None,
+                swap_step, jax.random.fold_in(k_swap, ens), None,
                 length=K - 1)
             return (jnp.swapaxes(us, 0, 1), jnp.swapaxes(ums, 0, 1), u_acc,
                     si, su)
