@@ -58,7 +58,9 @@ Phases, each of which raises on failure:
 12. Kernel time against batch size, per instantiation (CUDA events):
     float at B = 48, 96, 192, 384 on the fast plan, double at B = 9, 72,
     144 on the rung plan, beside the resident blocks per SM that the CUDA
-    occupancy API gives for the launch's variant.
+    occupancy API gives for the launch's variant; the float ones also at
+    the committed posteriors' fast-leg shapes (nx=32: std B=192, traps
+    B=64; kernel_times.posterior_fast_batch), beside theirs.
 
 13. The reference-pinned likelihood fixtures (reference
     Tests/test_eval_trial_move.py) at nx=128: float64 evaluations (the std
@@ -145,6 +147,7 @@ from metrotrpl_tpu_torch.solver.kernel_times import (
     kernel_inputs,
     kernel_vs_plain,
     nvidia_smi_line,
+    posterior_fast_batch,
     solve_bound,
 )
 
@@ -1326,6 +1329,19 @@ def main():
 
     batch_times(plan, param_info, STAUB_TRUE)
     batch_times(plan_t, param_info_t, truth_t)
+    # the float instantiations at the committed posteriors' fast-leg
+    # shapes (nx=32: 192 std rows, 64 traps rows)
+    for model in ("std", "traps"):
+        args, kw = posterior_fast_batch(model, dev)
+        B, _, nx32 = args[1].shape
+        occ = sk.occupancy(model, f32, nx32)
+        ms = cuda_ms(lambda: sk.integrate_observables_cuda(*args, **kw), 10)
+        by_batch[f"{model}_f32"].update(
+            ms_nx32={B: ms}, blocks_per_sm_nx32=occ["blocks_per_sm"])
+        print(f"phase 12 {model}_f32 nx=32: kernel ms at B = {B}: {ms:.3f}; "
+              f"{occ['blocks_per_sm']} blocks/SM x {n_sm} SMs "
+              f"({occ['threads']} threads, {occ['smem_bytes']} B shared per "
+              f"block), n_steps {args[2].shape[0]}, on {card}")
 
     # ---- phases 13-16: the pinned fixtures, the real data, NN and pa ----
     launches_pin = phase13_pinned(card, dev)
@@ -1365,6 +1381,8 @@ def main():
            for lb, ln in launches_mesh.items()},
         "ms_by_batch": by_batch[f"{model}_{dl}"]["ms"],
         "blocks_per_sm": by_batch[f"{model}_{dl}"]["blocks_per_sm"],
+        **{k: v for k, v in by_batch[f"{model}_{dl}"].items()
+           if k.endswith("_nx32")},
         **results[f"{model}_{dl}"],
         "posterior_shapes": (checks_post[model] if dtype == f32 else []),
     } for model in ("std", "traps") for dl, dtype in (("f32", f32),

@@ -441,6 +441,14 @@ SDIRK_HD constexpr int pidx(unsigned pack, int r, int c) {
 SDIRK_HD constexpr bool pcol(unsigned pack, int c) {
   return (pack & (0x1111u << c)) != 0u;
 }
+// the columns of pack's rows in `rows` (bit r): with pack a level's L (U)
+// and rows alpha's (beta's), the rows of the partner's Dinv they read
+SDIRK_HD constexpr unsigned rows_read(unsigned pack, unsigned rows) {
+  unsigned m = 0u;
+  for (int r = 0; r < 4; ++r)
+    if ((rows >> r) & 1u) m |= (pack >> (4 * r)) & 0xFu;
+  return m;
+}
 
 template <int NC>
 struct Pattern;

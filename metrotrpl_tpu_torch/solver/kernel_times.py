@@ -13,22 +13,29 @@ in turns. Every checkout must have the wrapper
 with its present arguments.
 
 The inputs are made once, from this checkout, in a temporary directory
-inside it: the flagship std config and the traps config as
-``cli.write_example_config(fast=True)`` writes them, 8 states (+-0.1 dex
-around the truth on the active parameters) x 6 measurements = 48 rows at
-nx=128, on the float32 fast plan and the float64 rung plan. Per checkout
-and instantiation it reports:
+inside it (``make_inputs``): the flagship std config and the traps config
+as ``cli.write_example_config(fast=True)`` writes them, 64 states (+-0.1
+dex around the truth on the active parameters) x 6 measurements = 384
+rows at nx=128, on the float32 fast plan and the float64 rung plan; and
+the committed posteriors' fast-leg batches at nx=32 (32 states: 192 std
+rows, 64 traps rows; ``f32_nx32``). Per checkout and instantiation it
+reports:
 
-- ``ms_B48``: the kernel on its plan at B=48; the float64 rung also at
-  B=9 (the rung's rows per iteration in a profiled flagship walk) and B=1;
-- ``out_sha256``: a digest of the B=48 outputs, so that the summary can
-  say whether two checkouts' kernels agree bit for bit;
-- the split of its time: the same 48 rows at a constant step (the plan's
-  median dt) with the plan's Newton iterations and no chord (``as_is``),
-  with ``newton_iters=1`` (``ni1``), and as a chord plan that refactors
-  every 5 steps (``chord5``); the three times solved for ms per
-  factorization, ms per Newton iteration and the rest (the observables
-  and the launch).
+- ``ms_B<B>``: the kernel on its plan at B rows: the float ones at B =
+  48, 96, 192, 384 (one flagship iteration up to the fused E=8 walk),
+  the double ones at 48, 9 (the rung's rows per iteration in a profiled
+  flagship walk) and 1, the nx=32 batches whole;
+- ``sha_B<B>``: a digest of those outputs, so that the summary can say
+  whether two checkouts' kernels agree bit for bit (``out_sha256``:
+  the first size's);
+- ``blocks_per_sm``, ``threads``, ``smem_bytes``: the launch's
+  occupancy (``solve_kernel.occupancy``);
+- the split of its time: the first size's rows at a constant step (the
+  plan's median dt) with the plan's Newton iterations and no chord
+  (``as_is``), with ``newton_iters=1`` (``ni1``), and as a chord plan
+  that refactors every 5 steps (``chord5``); the three times solved for
+  ms per factorization, ms per Newton iteration and the rest (the
+  observables and the launch).
 
 Output, on stdout: one JSON line per checkout run, then a summary.
 """
@@ -195,16 +202,66 @@ def kernel_vs_plain(card, dev, pl, fp_x, dtype, states, label):
               f"B) on {card}"))
 
 
-def make_inputs(work):
-    """The 48-row kernel inputs of both models on both plans, as CPU
-    tensors: {(model, dtag): (params list, y0, dts, dx, kwargs)}."""
+#: batch sizes timed per instantiation at nx=128: the float ones at the
+#: walk's rows (48: one flagship iteration; 384: the fused E=8 walk),
+#: the double ones at the rung's (48, and the ~9 rows it repairs)
+SIZES = {"f32": (48, 96, 192, 384), "f64": (48, 9, 1)}
+
+
+def _states(truth, names, active, n, seed=0):
+    """n states +-0.1 dex around truth on the active parameters."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = np.array([truth[k] for k in names], dtype=float)
+    act = np.array([bool(active[k]) for k in names])
+    return base[None] * 10.0 ** (rng.uniform(-0.1, 0.1, (n, len(names)))
+                                 * act[None])
+
+
+def posterior_fast_batch(model, dev, n_states=32):
+    """The kernel's arguments and keywords (as kernel_inputs gives them)
+    on the committed posteriors' fast leg (scripts/posterior_torch.py,
+    nx=32, hmax 48, chord blocks of 4, float32): n_states states +-0.1
+    dex around the workload's start x its curves (192 std rows, 64 traps
+    rows at 32 states). The data only enters the likelihood, so the plan
+    is built on zeros in its place."""
     import numpy as np
     import torch
 
+    sys.path.insert(0, str(REPO / "scripts"))
+    import posterior_torch
+
+    w = posterior_torch.WORKLOADS[model]()
+    t = np.linspace(0, w.t_end, w.nt)
+    leg = posterior_torch.LEGS["fast"]
+    pl = posterior_torch.build_plans(w, t, [np.zeros(w.nt)] * len(w.lengths),
+                                     leg["hmax"], leg["refactor"],
+                                     leg["refine"])[0]
+    states = _states(w.start, list(pl.param_names),
+                     {k: k in w.active for k in pl.param_names}, n_states)
+    return kernel_inputs(dev, pl, states, pl.fwd[0][1], torch.float32)
+
+
+def _stored(args, kw):
+    """kernel_inputs' result as make_inputs stores it: (params list, y0,
+    dts, dx, kwargs)."""
+    p, y0, dts, dx = args
+    return [a.contiguous() for a in p], y0, dts, dx, kw
+
+
+def make_inputs(work):
+    """The kernel inputs of both models on both plans, as CPU tensors:
+    {(model, dtag): (params list, y0, dts, dx, kwargs)}. At nx=128 64
+    states x 6 measurements (384 rows: the float instantiations are timed
+    up to B=384, the double ones on the first 48) of the flagship std and
+    the traps config as ``cli.write_example_config(fast=True)`` writes
+    them, on the float32 fast plan and the float64 rung plan; at nx=32
+    (``dtag`` "f32_nx32") the posterior fast legs' batches."""
+    import torch
+
     from metrotrpl_tpu_torch.cli import _load_common, write_example_config
-    from metrotrpl_tpu_torch.inference.likelihood import expand_states
     from metrotrpl_tpu_torch.inference.metropolis import plans_from_config
-    from metrotrpl_tpu_torch.solver.forward import prepare_batch
     from metrotrpl_tpu_torch.workloads import STAUB_TRUE, TRAPS_TRUE
 
     work.mkdir(parents=True, exist_ok=True)
@@ -221,29 +278,16 @@ def make_inputs(work):
             str(cfg))
         pl, _ = plans_from_config(sim_info, param_info, dict(mcmc), e_data,
                                   iniPar)
-        names = list(pl.param_names)
-        rng = np.random.default_rng(0)
-        base = np.array([truth[n] for n in names], dtype=float)
-        active = np.array([bool(param_info["active"][n]) for n in names])
-        states = base[None] * 10.0 ** (
-            rng.uniform(-0.1, 0.1, (8, len(names))) * active[None])
-        g_idx, fp, fp_hi = pl.fwd[0]
+        states = _states(truth, list(pl.param_names), param_info["active"],
+                         64)
+        _, fp, fp_hi = pl.fwd[0]
+        cpu = torch.device("cpu")
         for dtag, fp_x, dtype in (("f32", fp, torch.float32),
                                   ("f64", fp_hi, torch.float64)):
-            t = lambda a, d=dtype: torch.as_tensor(  # noqa: E731
-                np.asarray(a), dtype=d)
-            init, raw = expand_states(pl, torch.as_tensor(g_idx),
-                                      t(fp_x.x_centers), t(states),
-                                      t(pl.init_profiles), t(pl.units))
-            p, y0, dts, _ = prepare_batch(init, raw, t(fp_x.dx).repeat(8),
-                                          t(fp_x.dt).repeat(8, 1), model)
-            kw = dict(model=model, scheme_name=fp_x.scheme,
-                      newton_iters=fp_x.newton_iters,
-                      refactor_every=fp_x.refactor_every,
-                      n_ramp=fp_x.n_ramp, ramp_block=fp_x.ramp_block,
-                      newton_plateau=fp_x.newton_plateau)
-            inputs[(model, dtag)] = ([a.contiguous() for a in p], y0, dts,
-                                     t(fp_x.dx).repeat(8), kw)
+            inputs[(model, dtag)] = _stored(
+                *kernel_inputs(cpu, pl, states, fp_x, dtype))
+        inputs[(model, "f32_nx32")] = _stored(
+            *posterior_fast_batch(model, cpu))
     return inputs
 
 
@@ -285,24 +329,29 @@ def time_here(inputs_path):
         return (ScaledParams(*(a[rows].to(dev) for a in p)),
                 y0[rows].to(dev), dts[:, rows].to(dev), dx[rows].to(dev))
 
+    def digest(outs):
+        h = hashlib.sha256()
+        for a in outs:
+            h.update(a.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     out = {"repo": os.getcwd(), "library": lib.path.name,
            "nvcc_s": lib.build_seconds}
     for (model, dtag), (p, y0, dts, dx, kw) in inputs.items():
-        rec = {}
-        sizes = (48, 9, 1) if dtag == "f64" else (48,)
+        rec = dict(sk.occupancy(model, y0.dtype, y0.shape[-1]))
+        sizes = SIZES.get(dtag, (y0.shape[0],))
         for B in sizes:
             args = on_dev(p, y0, dts, dx, slice(0, B))
             rec[f"ms_B{B}"] = cuda_ms(
                 lambda: sk.integrate_observables_cuda(*args, **kw))
-            if B == 48:   # a digest of the outputs, to compare checkouts
-                outs = sk.integrate_observables_cuda(*args, **kw)
-                h = hashlib.sha256()
-                for a in outs:
-                    h.update(a.contiguous().cpu().numpy().tobytes())
-                rec["out_sha256"] = h.hexdigest()[:16]
+            # a digest of the outputs, to compare checkouts
+            rec[f"sha_B{B}"] = digest(
+                sk.integrate_observables_cuda(*args, **kw))
+        Bs = sizes[0]
+        rec["ms"], rec["out_sha256"] = rec[f"ms_B{Bs}"], rec[f"sha_B{Bs}"]
         n_steps = dts.shape[0]
         const = torch.full_like(dts, float(np.median(dts.numpy())))
-        args = on_dev(p, y0, const, dx, slice(0, 48))
+        args = on_dev(p, y0, const, dx, slice(0, Bs))
         runs = {"as_is": dict(kw, n_ramp=None, refactor_every=1,
                               ramp_block=1, newton_plateau=None),
                 "ni1": dict(kw, n_ramp=None, refactor_every=1,
@@ -322,7 +371,8 @@ def time_here(inputs_path):
         rec.update(ms_per_factorization=float(f),
                    ms_per_newton_iteration=float(n),
                    ms_rest=float(rest), split_dt=float(const[0, 0]),
-                   split_counts=rows)
+                   split_B=Bs, split_counts=rows, nx=int(y0.shape[-1]),
+                   n_steps=n_steps)
         out[f"{model}_{dtag}"] = rec
     return out
 
@@ -363,14 +413,16 @@ def main():
             results.append(res)
     print(f"card: {card}")
     for res in results:
-        print(res["repo"], " ".join(
-            f"{k}={v['ms_B48']:.3f}" for k, v in res.items()
-            if isinstance(v, dict)))
+        print(res["repo"], "; ".join(
+            f"{k} " + " ".join(f"{m[3:]}={v[m]:.3f}" for m in v
+                               if m.startswith("ms_B"))
+            for k, v in res.items() if isinstance(v, dict)))
     for k, v in results[0].items():
         if isinstance(v, dict):
-            same = {r[k]["out_sha256"] == v["out_sha256"] for r in results}
-            print(f"{k}: outputs bit for bit the same in every checkout: "
-                  f"{same == {True}}")
+            shas = sorted(m for m in v if m.startswith("sha_B"))
+            same = all(r[k][m] == v[m] for r in results for m in shas)
+            print(f"{k}: outputs bit for bit the same in every checkout "
+                  f"at {', '.join(m[4:] for m in shas)}: {same}")
 
 
 if __name__ == "__main__":

@@ -8,9 +8,13 @@ Counterpart of ``metrotrpl_tpu/solver/pallas_step.py``:
 For CPU tensors it runs the plain PyTorch version
 (``solver/sdirk.py:integrate_observables``); for CUDA tensors it launches
 the kernel's instantiation for the model (std, C=3, or traps, C=4) and
-dtype on the current stream, or raises. ``LAUNCHES`` counts kernel
-launches per (model, dtype), so a run can show which instantiations its
-solves went through, and ``ROWS`` the rows those launches solved.
+dtype on the current stream, or raises. The launch picks the kernel's
+design from the dtype and the grid (``shape_of`` in the source): float
+up to 128 cells a thread per cell (32, 64 or 128 threads), otherwise a
+thread per block row of a cell; both give the same bits. ``LAUNCHES``
+counts kernel launches per (model, dtype), so a run can show which
+instantiations its solves went through, and ``ROWS`` the rows those
+launches solved.
 :func:`solve_flops` counts the operations a call needs, for the kernel's
 bound.
 """
@@ -181,10 +185,12 @@ def _launch(params, y0, dts, dx, model, scheme_name, newton_iters,
 
 
 def occupancy(model, dtype, nx):
-    """The occupancy of the kernel variant a call on an nx-cell grid
-    launches, from the CUDA occupancy API: dict of blocks_per_sm (blocks
-    one SM holds at once), threads and smem_bytes per block. Needs the
-    card (builds the library)."""
+    """The occupancy of the kernel design a call on an nx-cell grid
+    launches, from the CUDA occupancy API: dict of blocks_per_sm (blocks,
+    each one simulation, that one SM holds at once), threads and
+    smem_bytes per block. At nx=128: std float 3 blocks of 128 threads,
+    traps float 2; the double instantiations 1 block of NC x 128. Needs
+    the card (builds the library)."""
     lib = kernel_library().lib
     fn = getattr(lib, f"metrotrpl_sdirk_occupancy_{model}_{_DTYPE_TAG[dtype]}")
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

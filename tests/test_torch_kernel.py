@@ -161,18 +161,20 @@ def _flags_and_errors(out_k, out_p, thr=0.5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nx", [17, 32, 100, 128, 256])
+@pytest.mark.parametrize("nx", [17, 32, 33, 100, 128, 129, 256])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("model", ["std", "traps"])
 def test_cuda_kernel_matches_plain_across_widths(cuda_device, model, dtype,
                                                  nx):
-    """Kernel vs plain version at widths that leave ragged warps (17,
-    100), fill them (32, 128: a thread per block row and cell, factors in
-    shared memory) and pass 128 cells (256: two cells per thread, factors
-    thread-local), chord phases included: the same rows over the Newton
-    threshold 0.5, and on the others float64 rel <= 1e-9, float32
-    |d log10| <= 1e-4 (the chord solve amplifies float32 rounding with
-    nx, and the reduction orders differ)."""
+    """Kernel vs plain version at widths that leave ragged warps (17, 33,
+    100, 129), fill them (32, 128) and pass 128 cells (129, 256), chord
+    phases included: in float a thread per cell in one warp (17, 32), two
+    (33) and four (100, 128), past 128 cells (and in double at every
+    width) a thread per block row of one cell (up to 128) or of two
+    (129, 256). The same rows over the Newton threshold 0.5, and on the
+    others float64 rel <= 1e-9, float32 |d log10| <= 1e-4 (the chord
+    solve amplifies float32 rounding with nx, and the reduction orders
+    differ)."""
     p, y0, dts, dx = _kernel_inputs(4, nx, 16, dtype, cuda_device,
                                     n_ramp=8, model=model)
     kw = dict(model=model, refactor_every=4, n_ramp=8)
@@ -193,23 +195,24 @@ def test_cuda_kernel_matches_plain_across_widths(cuda_device, model, dtype,
 @pytest.mark.parametrize("model", ["std", "traps"])
 def test_cuda_kernel_row_independent_of_batch(cuda_device, model, dtype):
     """A row's outputs do not depend on the batch it is solved in: the
-    first row alone, and the first 48 rows in 9, 48 and 384 rows, bit for
-    bit, on a chord plan as the walk's fast plan is. 384 rows (8 fused
-    ensembles x 8 chains x 6 curves) pass the blocks the card holds at
-    once in both dtypes, so later waves run the same rows (one block per
-    row, nothing shared between blocks)."""
-    p, y0, dts, dx = _kernel_inputs(384, 128, 16, dtype, cuda_device,
-                                    n_ramp=8, model=model)
-    kw = dict(model=model, refactor_every=4, n_ramp=8)
+    first row alone, and the first 48 rows in 9, 48, 384 (8 fused
+    ensembles x 8 chains x 6 curves) and 48 more rows than the card holds
+    at once, bit for bit, on a chord plan as the walk's fast plan is. The
+    last batch runs in two waves, so later waves run the same rows (one
+    block per row, nothing shared between blocks)."""
     occ = sk.occupancy(model, dtype, 128)
     n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert 384 > occ["blocks_per_sm"] * n_sm
+    waves = occ["blocks_per_sm"] * n_sm + 48
+    p, y0, dts, dx = _kernel_inputs(max(384, waves), 128, 16, dtype,
+                                    cuda_device, n_ramp=8, model=model)
+    kw = dict(model=model, refactor_every=4, n_ramp=8)
     outs = {}
-    for B in (1, 9, 48, 384):
+    sizes = (1, 9, 48, 384, waves)
+    for B in sizes:
         sub = (type(p)(*(a[:B] for a in p)), y0[:B], dts[:, :B], dx[:B])
         outs[B] = [a[:, :48].cpu() for a in
                    sk.integrate_observables_cuda(*sub, **kw)]
-    for B in (9, 48, 384):
+    for B in sizes[1:]:
         for a, b in zip(outs[1], outs[B]):
             assert torch.equal(a[:, :1], b[:, :1])
         for a, b in zip(outs[48], outs[B]):
@@ -218,14 +221,25 @@ def test_cuda_kernel_row_independent_of_batch(cuda_device, model, dtype):
 
 @pytest.mark.cuda
 def test_cuda_occupancy_of_each_instantiation(cuda_device):
-    """The occupancy query answers for every entry point at the flagship
-    width with the launch's block shape (a thread per block row of a
-    cell) and at least one resident block per SM."""
+    """The occupancy query answers for every entry point with the
+    launch's block shape: in float a thread per cell up to 128 cells (32,
+    64 or 128 threads: one warp per 32 cells, a power of two), at nx=128
+    3 std and 2 traps blocks per SM (396 and 264 resident rows, so the
+    fused E=8 walk's 384 std rows run in one wave); past 128 cells, and
+    in double, a thread per block row of a cell (NC x 128 threads at
+    nx=128, NC x 96 at nx=150 with two cells a thread), at least one
+    block per SM."""
     for model, nc in (("std", 3), ("traps", 4)):
-        for dtype in (torch.float32, torch.float64):
-            occ = sk.occupancy(model, dtype, 128)
-            assert occ["threads"] == nc * 128
+        for nx, threads in ((17, 32), (32, 32), (33, 64), (100, 128),
+                            (128, 128), (150, nc * 96)):
+            occ = sk.occupancy(model, torch.float32, nx)
+            assert occ["threads"] == threads, (model, nx)
             assert occ["blocks_per_sm"] >= 1 and occ["smem_bytes"] > 0
+        occ = sk.occupancy(model, torch.float32, 128)
+        assert occ["blocks_per_sm"] >= (3 if model == "std" else 2)
+        occ = sk.occupancy(model, torch.float64, 128)
+        assert occ["threads"] == nc * 128
+        assert occ["blocks_per_sm"] >= 1 and occ["smem_bytes"] > 0
 
 
 @pytest.mark.cuda
@@ -746,14 +760,36 @@ inline unsigned ubuf[1024];
 #define blockIdx emu::bid
 #define blockDim emu::bdim
 inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+// v of lane src of this warp
 template <typename T>
-T __shfl_xor_sync(unsigned, T v, int off) {
-  const unsigned t = threadIdx.x, w = t >> 5, lane = t & 31;
+T emu_shfl(T v, int src) {
+  const unsigned t = threadIdx.x, w = t >> 5;
   emu::wbuf[t] = (double)v;
   emu::warp_bar[w]->arrive_and_wait();
-  const T o = (T)emu::wbuf[(w << 5) | (lane ^ off)];
+  const T o = (T)emu::wbuf[(w << 5) | src];
   emu::warp_bar[w]->arrive_and_wait();
   return o;
+}
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int off) {
+  return emu_shfl(v, (int)(threadIdx.x & 31) ^ off);
+}
+template <typename T>
+T __shfl_up_sync(unsigned, T v, int d) {
+  const int lane = threadIdx.x & 31;
+  return emu_shfl(v, lane >= d ? lane - d : lane);
+}
+template <typename T>
+T __shfl_down_sync(unsigned, T v, int d) {
+  const int lane = threadIdx.x & 31;
+  return emu_shfl(v, lane + d < 32 ? lane + d : lane);
+}
+template <typename T>
+T __shfl_sync(unsigned, T v, int src) {
+  return emu_shfl(v, src & 31);
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu::warp_bar[threadIdx.x >> 5]->arrive_and_wait();
 }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   const unsigned t = threadIdx.x, w = t >> 5;
@@ -783,17 +819,19 @@ _EMU_MAIN = r"""
 // Reads one launch from stdin (B nx n_steps n_stages newton_iters
 // n_phase1 ramp_block refactor ni_plateau gamma, the Butcher table, then
 // dt, y0, par, dx as the C entry points take them) and prints the three
-// (B, n_steps + 1) outputs, one per line.
+// (B, n_steps + 1) outputs, one per line. The launch takes the design,
+// block shape and shared memory that launch() gives it (shape_of), or
+// with a third argument "rows" the thread-per-row design (row_shape).
 #include <cstdio>
 #include <thread>
 #include "kernel_cpu.h"
 using namespace sdirk;
 
-template <typename S, int NC, int CPT>
-void run(int B, int nx, int L, int W, int cpt, const Scheme<S>& sc,
+template <typename S, int NC>
+void run(Kern<S, NC> kern, const Shape& v, int B, int nx, const Scheme<S>& sc,
          const Plan& plan, const std::vector<S>* in, std::vector<S>* out) {
-  const int T = NC * W;
-  std::vector<unsigned char> smem(smem_bytes<S, NC, CPT>(nx, L) + 64);
+  const int T = v.threads;
+  std::vector<unsigned char> smem(v.smem + 64);
   for (int b = 0; b < B; ++b) {
     std::memset(smem.data(), 0xFF, smem.size());
     emu::smem = smem.data();
@@ -808,10 +846,9 @@ void run(int B, int nx, int L, int W, int cpt, const Scheme<S>& sc,
       th.emplace_back([&, t] {
         emu::tid.x = t;
         emu::bid.x = b;
-        sdirk_solve_kernel<S, NC, CPT>(
-            in[0].data(), in[1].data(), in[2].data(), in[3].data(),
-            out[0].data(), out[1].data(), out[2].data(), nx, L, W, cpt, sc,
-            plan);
+        kern(in[0].data(), in[1].data(), in[2].data(), in[3].data(),
+             out[0].data(), out[1].data(), out[2].data(), nx, v.n_levels,
+             v.W, v.cpt, sc, plan);
       });
     for (auto& x : th) x.join();
     for (auto* x : wb) delete x;
@@ -819,7 +856,7 @@ void run(int B, int nx, int L, int W, int cpt, const Scheme<S>& sc,
 }
 
 template <typename S, int NC>
-int go() {
+int go(bool rows) {
   int B, nx, n_steps, nst, ni, n_phase1, R, Fr, nip;
   double gamma;
   if (std::scanf("%d %d %d %d %d %d %d %d %d %lf", &B, &nx, &n_steps, &nst,
@@ -846,16 +883,11 @@ int go() {
     }
   }
   for (auto& o : out) o.assign((size_t)B * (n_steps + 1), S(0));
-  int L = 0;
-  while ((1 << L) < nx) ++L;
-  const int cpt = nx <= 128 ? 1 : (nx + 127) / 128;  // as launch() picks
-  const int W = ((nx + cpt - 1) / cpt + 31) / 32 * 32;
-  if (cpt == 1)
-    run<S, NC, 1>(B, nx, L, W, cpt, sc, plan, in, out);
-  else if (cpt == 2)
-    run<S, NC, 2>(B, nx, L, W, cpt, sc, plan, in, out);
-  else
-    run<S, NC, 8>(B, nx, L, W, cpt, sc, plan, in, out);
+  const Shape v = rows ? row_shape<S, NC>(nx) : shape_of<S, NC>(nx);
+  // Sim's one-cell variant in float runs here only
+  const Kern<S, NC> k = v.cpt == 1 && !v.cell ? sdirk_solve_kernel<S, NC, 1>
+                                              : kernel_of<S, NC>(v);
+  run<S, NC>(k, v, B, nx, sc, plan, in, out);
   for (auto& o : out) {
     for (S x : o) std::printf("%.17g ", (double)x);
     std::printf("\n");
@@ -865,8 +897,10 @@ int go() {
 
 int main(int argc, char** argv) {
   const bool f64 = argv[2][0] == 'd';
-  if (argv[1][0] == '3') return f64 ? go<double, 3>() : go<float, 3>();
-  return f64 ? go<double, 4>() : go<float, 4>();
+  const bool rows = argc > 3 && std::strcmp(argv[3], "rows") == 0;
+  if (argv[1][0] == '3')
+    return f64 ? go<double, 3>(rows) : go<float, 3>(rows);
+  return f64 ? go<double, 4>(rows) : go<float, 4>(rows);
 }
 """
 
@@ -898,9 +932,10 @@ def kernel_on_cpu(tmp_path_factory):
     return exe
 
 
-def _run_kernel_on_cpu(exe, model, p, y0, dts, dx, **kw):
+def _run_kernel_on_cpu(exe, model, p, y0, dts, dx, rows=False, **kw):
     """The kernel's outputs (pl, tr, resid), each (n_steps + 1, B), from
-    the CPU build, on the wrapper's inputs and plan arguments."""
+    the CPU build, on the wrapper's inputs and plan arguments; ``rows``
+    runs the thread-per-row design whatever the launch would pick."""
     from metrotrpl_tpu_torch.solver.sdirk import SDIRK_SCHEMES
 
     n_steps, B = dts.shape
@@ -920,24 +955,29 @@ def _run_kernel_on_cpu(exe, model, p, y0, dts, dx, **kw):
         repr(float(v)) for v in vals)
     C = "3" if model == "std" else "4"
     dt = "d" if y0.dtype == torch.float64 else "f"
-    out = subprocess.run([str(exe), C, dt], input=stdin, capture_output=True,
-                         text=True, check=True, timeout=600).stdout
+    out = subprocess.run([str(exe), C, dt] + ["rows"] * rows, input=stdin,
+                         capture_output=True, text=True, check=True,
+                         timeout=600).stdout
     return [np.array(line.split(), dtype=float).reshape(B, n_steps + 1).T
             for line in out.strip().split("\n")]
 
 
-@pytest.mark.parametrize("nx", [17, 150])
+@pytest.mark.parametrize("nx", [17, 100, 150])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("model", ["std", "traps"])
 def test_kernel_source_on_cpu_matches_plain_version(kernel_on_cpu, model,
                                                     dtype, nx):
     """The kernel's CUDA source, run on the CPU thread for thread, against
-    the plain version, chord phases included: a ragged single warp per
-    row (nx=17: one cell per thread, factors in shared memory) and two
-    cells per thread (nx=150, factors thread-local). float64 within rel
-    1e-12 (the kernel's fma against the plain version's separate
-    roundings), float32 within |d log10| 1e-5 on the observables (the
-    block sums run in another order); the residuals alike."""
+    the plain version, chord phases included, in the design the launch
+    picks: in float a thread per cell in one ragged warp (nx=17: every
+    exchange a warp shuffle) and in four warps (nx=100: the neighbours and
+    the levels at shifts 1 and 2 through shared memory, shifts 4 to 64 by
+    shuffles), in double a thread per block row of one cell (17, 100),
+    and past 128 cells two cells per thread (nx=150, factors
+    thread-local). float64 within rel 1e-12 (the kernel's fma against the
+    plain version's separate roundings), float32 within |d log10| 1e-5
+    on the observables (the block sums run in another order); the
+    residuals alike."""
     n_steps = 6 if nx < 100 else 3
     kw = dict(refactor_every=2, n_ramp=n_steps - 2)
     p, y0, dts, dx = _kernel_inputs(2, nx, n_steps, dtype, "cpu",
@@ -956,19 +996,52 @@ def test_kernel_source_on_cpu_matches_plain_version(kernel_on_cpu, model,
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("model", ["std", "traps"])
-def test_kernel_source_on_cpu_flags_nan_row(kernel_on_cpu, model):
-    """A NaN in one row's initial state reaches that row's residual in the
-    kernel's source run on the CPU, as in the plain version, and no other
-    row's."""
-    p, y0, dts, dx = _kernel_inputs(3, 24, 4, torch.float64, "cpu",
-                                    model=model)
+def _nan_row_on_cpu(exe, model, dtype, nx):
+    p, y0, dts, dx = _kernel_inputs(3, nx, 4, dtype, "cpu", model=model)
     y0 = y0.clone()
-    y0[1, 0, 12] = float("nan")
-    got = _run_kernel_on_cpu(kernel_on_cpu, model, p, y0, dts, dx)
+    y0[1, 0, nx // 2] = float("nan")
+    got = _run_kernel_on_cpu(exe, model, p, y0, dts, dx)
     want = sk.integrate_observables_plain(p, y0, dts, dx, model=model)
     flags = ~(got[2].max(axis=0) < 0.5)
     np.testing.assert_array_equal(flags, [False, True, False])
     np.testing.assert_array_equal(flags,
                                   ~(want[2].numpy().max(axis=0) < 0.5))
     assert np.isnan(got[2][1:, 1]).all()
+
+
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_kernel_source_on_cpu_flags_nan_row(kernel_on_cpu, model):
+    """A NaN in one row's initial state reaches that row's residual in the
+    kernel's source run on the CPU, as in the plain version, and no other
+    row's (double: the thread-per-row design)."""
+    _nan_row_on_cpu(kernel_on_cpu, model, torch.float64, 24)
+
+
+@pytest.mark.parametrize("nx", [24, 100])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_kernel_source_on_cpu_flags_nan_row_in_float(kernel_on_cpu, model,
+                                                     nx):
+    """The NaN row in float, through the thread-per-cell design in one
+    warp (nx=24) and in four (nx=100, where the damping max crosses the
+    warps' slots): that row's residual only, as in the plain version."""
+    _nan_row_on_cpu(kernel_on_cpu, model, torch.float32, nx)
+
+
+@pytest.mark.parametrize("nx", [17, 33, 100, 128])
+@pytest.mark.parametrize("model", ["std", "traps"])
+def test_kernel_source_on_cpu_cell_design_equals_row_design(kernel_on_cpu,
+                                                           model, nx):
+    """In float the thread-per-cell design computes every output entry by
+    the operations of the thread-per-row design (the same per-row header
+    functions on the same operands, the knot sums in the same order, the
+    damping max by the same bits), so their outputs agree bit for bit:
+    one warp (17), two (33: the neighbours and shift 1 through shared
+    memory) and four (100, 128), chord phases on."""
+    kw = dict(refactor_every=2, n_ramp=4)
+    p, y0, dts, dx = _kernel_inputs(2, nx, 6, torch.float32, "cpu",
+                                    n_ramp=4, model=model)
+    cell = _run_kernel_on_cpu(kernel_on_cpu, model, p, y0, dts, dx, **kw)
+    rows = _run_kernel_on_cpu(kernel_on_cpu, model, p, y0, dts, dx,
+                              rows=True, **kw)
+    for a, b in zip(cell, rows):
+        np.testing.assert_array_equal(a, b)
