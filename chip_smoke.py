@@ -119,18 +119,31 @@ Phases, each of which raises on failure:
     must launch once per iteration on E_l*K_l*6 rows, the rung at least
     once per layout. Aggregate walker-steps/s per layout (with the
     spawn, and inside the ranks' walks) beside the fused walk's.
+21. The flagship posterior's pieces (scripts/flagship_torch.py): its
+    dataset (nx=128, 501 points to 2000 ns, 6 curves, by the port's LSODA
+    oracle), whose SHA-256 must be the committed oracle chain's; a short
+    production leg, 8 ensembles x 4 temperatures x 200 iterations in
+    float32 with the float64 rung: every state and ll finite, the std
+    float kernel launched at least once per iteration, each launch on 192
+    rows; the 8 committed ridge states through the leg's evaluation on the
+    card: equal to the same evaluation through the plain version on the
+    host (rel 1e-5 in ll, the same rows repaired) and within |dll| 0.1 of
+    their committed oracle ll, 0.125 at mu_n 55.9, where the reference's
+    own rung is 0.118-0.119 from it (each |dll| is printed); each std
+    instantiation against its plain version at the leg's last 8 cold
+    states x 6 curves (float on the fast plan, double on the rung's).
 
 Launch counts are zeroed just before each main path (phases 4, 7, 8, 10,
-11, 13-16, 18, each leg of 19, and in each rank of 20) and read just
-after it. The last three lines of standard output are the
+11, 13-16, 18, each leg of 19, in each rank of 20, and 21's leg) and read
+just after it. The last three lines of standard output are the
 kernels JSON object (one entry per instantiation, with its launches on
 its main path, its error against the plain version, CUDA-event times of
 kernel and plain version, and its bound: the larger of the FLOPs it needs
 (solve_kernel.solve_flops) over the card's non-tensor-core peak and its
 bytes over the memory rate; the float ones also the comparisons of phase
-19 under posterior_shapes), the nvidia-smi line and {"ok": true,
-"device": {...}}. Without CUDA, or outside the repository, it exits
-non-zero and prints no result.
+19 under posterior_shapes, the std ones phase 21's under flagship_shape),
+the nvidia-smi line and {"ok": true, "device": {...}}. Without CUDA, or
+outside the repository, it exits non-zero and prints no result.
 """
 
 import json
@@ -171,6 +184,17 @@ N_ITERS_MESH = 100     # the sharded walk, 50 + 50 resumed
 # its 90 s
 MESH_LAYOUTS = ((1, 1, True), (2, 1, True), (1, 2, True))
 MESH_SEED = 88
+N_ITERS_FLAGSHIP = 200  # the short flagship leg (8 ensembles x 4 temperatures)
+#: each committed ridge state's |ll - oracle ll| limit (mu_n 50.1, 55.9,
+#: 66.0, 77.4, 83.5, 88.0, 93.7, 100.0): 0.1, but 0.125 at mu_n 55.9, where
+#: the reference's own rung (h16 chord-free float64) is 0.118 from the
+#: oracle by metrotrpl_tpu/inference/likelihood.py:406 and 0.119 by
+#: scripts/probe_r14_ridge64.py --prod; and the card's relative limit
+#: against the same evaluation through the plain version on the host (the
+#: float32 walk's likelihood sums its 3006 terms in another order there:
+#: 1.2e-6 apart at |ll| ~ 1010 on the card)
+RIDGE_DLL_LIMITS = (0.1, 0.125, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1)
+RIDGE_CARD_RTOL = 1e-5
 
 #: the reference-pinned likelihood fixtures (reference
 #: Tests/test_eval_trial_move.py, as tests/test_reference_parity.py:64-186
@@ -930,6 +954,105 @@ def phase20_mesh(card, work, fluences, layouts=MESH_LAYOUTS):
     return launches
 
 
+def phase21_flagship(card, dev):
+    """The flagship posterior's pieces (scripts/flagship_torch.py): its
+    dataset, whose digest must be the committed oracle chain's; a short
+    production leg, 8 ensembles x 4 temperatures x N_ITERS_FLAGSHIP
+    iterations in float32 with the float64 rung, whose states and ll must
+    be finite and whose std float kernel must launch at least once per
+    iteration, every launch on 192 rows; the 8 committed ridge states
+    through the leg's evaluation on the card, against the committed
+    oracle ll and against the same evaluation through the plain version
+    on the host; and each std instantiation against its plain version at
+    the leg's last 8 cold states x 6 curves (float on the fast plan,
+    double on the rung's). Returns (the leg's launches, the comparisons)."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import flagship_torch
+
+    from metrotrpl_tpu_torch.inference.likelihood import make_eval_logll
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    w = flagship_torch.flagship_workload()
+    t, vals, digest = flagship_torch.checked_dataset(w)
+    data_s = time.perf_counter() - t_phase
+    r = flagship_torch.walk_leg(w, t, vals, "f32", N_ITERS_FLAGSHIP, dev,
+                                log=lambda line: None)
+    n32, rows32 = r["launches"][("std", f32)], r["rows"][("std", f32)]
+    lpi = {k: round(v, 3) for k, v in r["launches_per_iteration"].items()}
+    print(f"phase 21: flagship dataset in {data_s:.1f} s, SHA-256 {digest} "
+          f"(the oracle chain's); leg of {r['n_chains']} ensembles x "
+          f"{r['n_temps']} temperatures x {N_ITERS_FLAGSHIP} iterations in "
+          f"{r['seconds']:.2f} s: {r['walker_steps_per_s']:.1f} "
+          f"walker-steps/s, {r['ms_per_iteration']:.3f} ms an iteration "
+          f"past the initial evaluation on {card}; cold-chain acceptance "
+          f"{r['acceptance']:.3f}; launches per iteration {lpi}; std f32 "
+          f"{n32} launches on {rows32} rows; repaired rows per iteration"
+          f" {r['repaired_rows_per_iteration']:.3f} of "
+          f"{r['rows_per_iteration']}")
+    if not (np.isfinite(r["states"]).all() and np.isfinite(r["ll"]).all()):
+        raise RuntimeError("phase 21: a state or its log-likelihood is not "
+                           "finite")
+    if n32 < N_ITERS_FLAGSHIP or rows32 != n32 * r["rows_per_iteration"] \
+            or r["rows_per_iteration"] != 192:
+        raise RuntimeError(f"phase 21: the std float kernel launched {n32} "
+                           f"times on {rows32} rows (want at least "
+                           f"{N_ITERS_FLAGSHIP} launches of 192 rows)")
+
+    # the ridge states through the leg's evaluation (float32 walk, the
+    # float64 rung), on the card and through the plain version on the host
+    ridge = np.load(flagship_torch.RIDGE_STATES)
+    rstates = np.stack([ridge[n] if n in ridge.files
+                        else np.full(8, w.true[n]) for n in w.names], axis=1)
+    ll_o = ridge["ll_o"]
+
+    def ridge_ll(where):
+        ev = make_eval_logll(r["plan"], dtype=f32, device=where)
+        o = ev(torch.as_tensor(rstates, dtype=f32, device=where),
+               torch.ones(1, dtype=f32, device=where))
+        return (o["logll_T"][:, 0].double().cpu().numpy(),
+                o["repair_states"].cpu().numpy())
+
+    (ll_k, rep_k), (ll_p, rep_p) = map(ridge_ll, (dev, torch.device("cpu")))
+    dll, dll_p = np.abs(ll_k - ll_o), np.abs(ll_p - ll_o)
+    print("phase 21 ridge states (mu_n " + ", ".join(
+        f"{m:.1f}" for m in ridge["mu_n"]) + f"): |ll - oracle ll| on the "
+          f"card {np.round(dll, 4).tolist()}, through the plain version "
+          f"{np.round(dll_p, 4).tolist()}; card - plain max "
+          f"{np.abs(ll_k - ll_p).max():.3e}; rows repaired per state "
+          f"{rep_k.tolist()} (plain {rep_p.tolist()})")
+    if not (np.isfinite(ll_k).all() and np.array_equal(rep_k, rep_p)
+            and np.all(np.abs(ll_k - ll_p) <= RIDGE_CARD_RTOL * np.abs(ll_p))):
+        raise RuntimeError("phase 21: the card's ridge evaluation is not "
+                           "finite or differs from the plain version's")
+    if len(dll) != len(RIDGE_DLL_LIMITS):
+        raise RuntimeError(f"phase 21: {len(dll)} ridge states, want "
+                           f"{len(RIDGE_DLL_LIMITS)}")
+    miss = ~(dll <= np.asarray(RIDGE_DLL_LIMITS))
+    if miss.any():
+        raise RuntimeError(f"phase 21: ridge states {np.nonzero(miss)[0]} "
+                           f"over their |dll| limits {RIDGE_DLL_LIMITS} on "
+                           "the card")
+    print(f"phase 21: every ridge state within its |dll| limit "
+          f"{RIDGE_DLL_LIMITS} of the oracle")
+
+    # each std instantiation against its plain version at the leg's last
+    # cold states
+    cold = r["states"].reshape(r["n_chains"], r["n_temps"], -1)[:, 0]
+    _, fp, fp_hi = r["plan"].fwd[0]
+    checks = {}
+    for label, fp_x, dtype in (("std_f32", fp, f32), ("std_f64", fp_hi, f64)):
+        c = kernel_vs_plain(card, dev, r["plan"], fp_x, dtype, cold,
+                            f"phase 21 {label}")
+        print(f"phase 21 {label} at the leg's last {len(cold)} cold states: "
+              f"{c.pop('line')}")
+        checks[label] = c
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return r["launches"], checks
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1358,6 +1481,9 @@ def main():
     # ---- phase 20: the sharded walk on one card ----
     launches_mesh = phase20_mesh(card, work, fluences)
 
+    # ---- phase 21: the flagship posterior's leg and ridge states ----
+    launches_flag, checks_flag = phase21_flagship(card, dev)
+
     # one entry per instantiation; launches are each model's main-path
     # counts; max_abs_err is in decades of the observables
     launch_of = {"std": launches_std, "traps": launches_traps}
@@ -1379,12 +1505,14 @@ def main():
            for m, ln in launches_post.items()},
         **{f"launches_mesh_{lb}": ln[(model, dtype)]
            for lb, ln in launches_mesh.items()},
+        "launches_flagship": launches_flag[(model, dtype)],
         "ms_by_batch": by_batch[f"{model}_{dl}"]["ms"],
         "blocks_per_sm": by_batch[f"{model}_{dl}"]["blocks_per_sm"],
         **{k: v for k, v in by_batch[f"{model}_{dl}"].items()
            if k.endswith("_nx32")},
         **results[f"{model}_{dl}"],
         "posterior_shapes": (checks_post[model] if dtype == f32 else []),
+        "flagship_shape": checks_flag.get(f"{model}_{dl}"),
     } for model in ("std", "traps") for dl, dtype in (("f32", f32),
                                                        ("f64", f64))]
     print(json.dumps({"kernels": kernels}))

@@ -170,8 +170,10 @@ def make_dataset(w):
     return t, vals
 
 
-def build_plans(w, t, vals, hmax, refactor, refine):
-    """(likelihood plan, move plan) of one leg."""
+def build_plans(w, t, vals, hmax, refactor, refine, escalate=True):
+    """(likelihood plan, move plan) of one leg; escalate=False builds the
+    likelihood plan without the escalation ladder (every row as the fast
+    solve leaves it, never solved again)."""
     from metrotrpl_tpu_torch.inference.likelihood import build_likelihood_plan
     from metrotrpl_tpu_torch.inference.moves import build_move_plan
 
@@ -193,24 +195,35 @@ def build_plans(w, t, vals, hmax, refactor, refine):
     e_data = ([t] * M, vals, [np.full(w.nt, w.unc)] * M)
     plan = build_likelihood_plan(sim_info, param_info, mcmc, e_data, iniPar,
                                  hmax=hmax, align_outputs=False,
-                                 refactor_every=refactor, refine=refine)
+                                 refactor_every=refactor, refine=refine,
+                                 escalate=escalate)
     return plan, build_move_plan(param_info, mcmc)
 
 
 def run_leg(w, t, vals, leg, n_iters, n_chains=N_CHAINS, device="cuda",
-            log=print, draw_seed=None, dtype=torch.float32):
+            log=print, draw_seed=None, dtype=torch.float32, n_temps=1):
     """Walk n_chains untempered chains (float32 unless dtype says
-    otherwise) for n_iters iterations
-    (windows of 500) through the port's build_mh_kernel with the ladder
-    inline, drawing from the stream seeded draw_seed (default: the
-    workload's seed). Returns a dict: the leg's plan, its draw seed,
-    samples (active name -> (n_iters, K)),
-    acceptance, the last states and log-likelihoods, walker-steps/s of
-    the windows (past the initial evaluation, which builds the kernel
-    library at its first use), and the leg's kernel launches and repaired
-    rows per iteration (None off the card, where the wrapper counts
-    nothing)."""
-    from metrotrpl_tpu_torch.inference.metropolis import build_mh_kernel
+    otherwise) for n_iters iterations (windows of 500) through the port's
+    build_mh_kernel with the ladder inline, drawing from the stream seeded
+    draw_seed (default: the workload's seed). With n_temps > 1 it walks
+    n_chains independent tempered ensembles instead, each of n_temps
+    chains at T = 2^0 ... 2^(n_temps - 1) with a swap round every 10
+    iterations, fused into one solve batch (vmap_ensembles); ensemble e
+    draws from the stream seeded draw_seed + e, and only each ensemble's
+    T=1 chain enters the samples (posterior_compare.py's
+    run_tpu_mh(temper=n_temps)).
+
+    Returns a dict: the leg's plan, its draw seed, samples (active name
+    -> (n_iters, n_chains)), the cold chains' acceptance, the last states
+    of every chain and their own log-likelihoods, walker-steps/s and ms
+    per iteration of the windows (past the initial evaluation, which
+    builds the kernel library at its first use), and the leg's kernel
+    launches and repaired rows per iteration (None off the card, where
+    the wrapper counts nothing)."""
+    from metrotrpl_tpu_torch.inference.metropolis import (
+        build_mh_kernel,
+        vmap_ensembles,
+    )
     from metrotrpl_tpu_torch.inference.mh_core import TorchDraws
     from metrotrpl_tpu_torch.inference.moves import n_tries
     from metrotrpl_tpu_torch.solver import solve_kernel as sk
@@ -221,16 +234,20 @@ def run_leg(w, t, vals, leg, n_iters, n_chains=N_CHAINS, device="cuda",
     plan, move = build_plans(w, t, vals, cfg["hmax"], cfg["refactor"],
                              cfg["refine"])
     P, M = len(w.names), len(w.lengths)
+    tempered = n_temps > 1
+    E, K = (n_chains, n_temps) if tempered else (1, n_chains)
+    temps = 2.0 ** np.arange(n_temps) if tempered else np.ones(K)
     base_move = np.array([w.width if n in w.active else 0.0
                           for n in w.names])
-    kern = build_mh_kernel(plan, move, np.ones(n_chains), base_move,
-                           temper_freq=10, do_tempering=False, dtype=dtype,
-                           device=device)
+    kern = vmap_ensembles(build_mh_kernel(
+        plan, move, temps, base_move, temper_freq=10,
+        do_tempering=tempered, dtype=dtype, device=device))
     draw_seed = w.seed if draw_seed is None else draw_seed
-    source = TorchDraws(draw_seed, n_chains, P, n_tries(move),
-                        move.mu_constraint is not None, dtype, device)
+    sources = [TorchDraws(draw_seed + e, K, P, n_tries(move),
+                          move.mu_constraint is not None, dtype, device)
+               for e in range(E)]
     init = np.array([w.start[n] for n in w.names])
-    states = torch.as_tensor(np.tile(init, (n_chains, 1)), dtype=dtype,
+    states = torch.as_tensor(np.tile(init, (E, K, 1)), dtype=dtype,
                              device=device)
     sk.reset_launch_counts()
     t_start = time.perf_counter()
@@ -241,37 +258,48 @@ def run_leg(w, t, vals, leg, n_iters, n_chains=N_CHAINS, device="cuda",
     k = 0
     while k < n_iters:
         n = min(WINDOW, n_iters - k)
-        states, ll, _, _, _, hist = kern.run_window(states, ll, k, n, source)
-        h_states.append(hist[0].cpu().numpy())   # waits for the window
-        h_accept.append(hist[2].cpu().numpy())
+        states, ll, _, _, _, hist = kern.run_window(states, ll, k, n,
+                                                    sources)
+        h_st, h_acc = hist[0], hist[2]          # (E, n, K, P), (E, n, K)
+        if tempered:                            # the cold chains
+            h_st, h_acc = h_st[:, :, 0], h_acc[:, :, 0]
+        else:
+            h_st, h_acc = h_st[0], h_acc[0]
+        h_states.append(h_st.cpu().numpy())     # waits for the window
+        h_accept.append(h_acc.cpu().numpy())
         k += n
         log(f"  {w.model} {leg} {k}/{n_iters}")
     t_end = time.perf_counter()
     # the kernel counts launches and rows on the card only; every
-    # evaluation (the initial one included) solves all K * M rows once
+    # evaluation (the initial one included) solves all E * K * M rows
     launches, rows = dict(sk.LAUNCHES), dict(sk.ROWS)
     on_card = device.type == "cuda"
-    base_rows = (n_iters + 1) * n_chains * M
-    h = np.concatenate(h_states)[:n_iters]          # (iters, K, P)
-    acc = np.concatenate(h_accept)[:n_iters]        # (iters, K)
+    base_rows = (n_iters + 1) * E * K * M
+    axis = 1 if tempered else 0                 # the window's steps
+    h = np.concatenate(h_states, axis=axis)
+    acc = np.concatenate(h_accept, axis=axis)
+    if tempered:                                # -> (iters, E, ...)
+        h, acc = h.swapaxes(0, 1), acc.swapaxes(0, 1)
     return {
         "plan": plan, "draw_seed": draw_seed,
         "samples": {p: h[:, :, w.names.index(p)] for p in w.active},
         "acceptance": float(acc.mean()), "accept": acc,
-        "states": states.double().cpu().numpy(),
-        "ll": torch.diagonal(ll).double().cpu().numpy(),
-        "walker_steps_per_s": n_chains * n_iters / (t_end - clock),
+        "states": states.reshape(E * K, P).double().cpu().numpy(),
+        "ll": torch.diagonal(ll, dim1=1, dim2=2).reshape(-1)
+        .double().cpu().numpy(),
+        "walker_steps_per_s": E * K * n_iters / (t_end - clock),
+        "ms_per_iteration": 1e3 * (t_end - clock) / n_iters,
         "seconds": t_end - t_start,
         "launches_per_iteration": {
             f"{m}_{d}": launches[(m, dt)] / n_iters
             for m in ("std", "traps") for d, dt in (("f32", f32),
                                                     ("f64", f64))},
-        "launches": launches,
+        "launches": launches, "rows": rows,
         "repaired_rows_per_iteration":
             ((sum(rows.values()) - base_rows) / n_iters if on_card
              else None),
-        "rows_per_iteration": n_chains * M,
-        "n_iters": n_iters, "n_chains": n_chains,
+        "rows_per_iteration": E * K * M,
+        "n_iters": n_iters, "n_chains": n_chains, "n_temps": n_temps,
     }
 
 

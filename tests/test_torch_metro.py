@@ -71,7 +71,8 @@ def test_metro_resume_repeats_uninterrupted_walk(tmp_path):
 def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
     """With jax and the JAX package unimportable, every port module (the
     surrogate, the IRF oracle, the GUI and the native runtime included),
-    chip_smoke.py and scripts/posterior_torch.py import, the native CSV
+    chip_smoke.py and scripts/posterior_torch.py, flagship_torch.py and
+    esc_validation_torch.py import, the native CSV
     parser loads a file,
     write-example writes the flagship config (with stand-in data),
     write_example_config the traps config, the port reads both and builds
@@ -104,6 +105,8 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         import chip_smoke
         sys.path.insert(0, "scripts")
         import posterior_torch
+        import flagship_torch
+        import esc_validation_torch
         from metrotrpl_tpu_torch.runtime import load_csv, native_available
         assert native_available()
         assert load_csv("Inputs/real_staub_input.csv").shape[0] > 0
