@@ -132,16 +132,32 @@ Phases, each of which raises on failure:
     own rung is 0.118-0.119 from it (each |dll| is printed); each std
     instantiation against its plain version at the leg's last 8 cold
     states x 6 curves (float on the fast plan, double on the rung's).
+22. The reference-math side (scripts/extend_oracle_torch.py and
+    flagship_torch.py --ll-check): the oracle chain's extension resumed
+    from the committed chain, its start ll through a pool of 6 spawned
+    processes equal to the serial ll (in one of the workers) bit for
+    bit, 3 iterations in the
+    pool equal to the committed extended chain's first 3 bit for bit; the
+    ll check's 16 committed states (8 above mu_n 50, 8 below) through
+    the leg's evaluation on the card, each within its fixed limit of its
+    committed oracle ll (LL_CHECK_DLL_LIMITS: the committed card reading
+    rounded up to the next 0.05, at least 0.1); the states whose rows all
+    went through the float64 rung (every state above mu_n 50) within rel
+    1e-5 of the plain version on the host, and at the other states' rows
+    (float32 fast path: card and host round apart and can flip a flag)
+    the std float kernel against its plain version on the card.
 
 Launch counts are zeroed just before each main path (phases 4, 7, 8, 10,
-11, 13-16, 18, each leg of 19, in each rank of 20, and 21's leg) and read
-just after it. The last three lines of standard output are the
+11, 13-16, 18, each leg of 19, in each rank of 20, 21's leg and 22's
+evaluation) and read just after it. The last three lines of standard
+output are the
 kernels JSON object (one entry per instantiation, with its launches on
 its main path, its error against the plain version, CUDA-event times of
 kernel and plain version, and its bound: the larger of the FLOPs it needs
 (solve_kernel.solve_flops) over the card's non-tensor-core peak and its
 bytes over the memory rate; the float ones also the comparisons of phase
-19 under posterior_shapes, the std ones phase 21's under flagship_shape),
+19 under posterior_shapes, the std ones phase 21's under flagship_shape;
+launches_ll_check are phase 22's),
 the nvidia-smi line and {"ok": true, "device": {...}}. Without CUDA, or
 outside the repository, it exits non-zero and prints no result.
 """
@@ -195,6 +211,35 @@ N_ITERS_FLAGSHIP = 200  # the short flagship leg (8 ensembles x 4 temperatures)
 #: 1.2e-6 apart at |ll| ~ 1010 on the card)
 RIDGE_DLL_LIMITS = (0.1, 0.125, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1)
 RIDGE_CARD_RTOL = 1e-5
+#: the oracle chain's extension in phase 22: iterations, and the spawned
+#: processes its curves are solved in
+N_ITERS_EXTENSION = 3
+ORACLE_WORKERS = 6
+#: each ll-check state's |ll - oracle ll| limit on the card
+#: (scripts/.ll_check_states_torch.npz, written by flagship_torch.py
+#: --ll-check 192 on an NVIDIA H100 80GB HBM3 at 700 W): the committed
+#: card reading rounded up to the next 0.05, and at least 0.1; and the
+#: card's relative limit against the plain version on the host where
+#: every row went through the float64 rung, as RIDGE_CARD_RTOL
+LL_CHECK_DLL_LIMITS = (
+    0.1,    # mu_n 70.3: reading 0.0884
+    0.1,    # mu_n 95.7: 0.0114
+    0.1,    # mu_n 52.1: 0.0600
+    0.1,    # mu_n 79.0: 0.0122
+    0.15,   # mu_n 84.1: 0.1116
+    0.1,    # mu_n 83.7: 0.0568
+    0.1,    # mu_n 51.6: 0.0644
+    0.1,    # mu_n 92.4: 0.0059
+    0.15,   # mu_n 49.8: 0.1027
+    0.1,    # mu_n 34.2: 0.0000
+    0.1,    # mu_n 17.8: 0.0300
+    1.1,    # mu_n 12.1: 1.0753 (float32 fast path, one row repaired)
+    0.75,   # mu_n 22.1: 0.7148 (float32 fast path)
+    0.25,   # mu_n 26.3: 0.2498 (float32 fast path, one row repaired)
+    0.45,   # mu_n 23.4: 0.4050 (float32 fast path, one row repaired)
+    0.85,   # mu_n 20.6: 0.8222 (float32 fast path)
+)
+LL_CHECK_CARD_RTOL = 1e-5
 
 #: the reference-pinned likelihood fixtures (reference
 #: Tests/test_eval_trial_move.py, as tests/test_reference_parity.py:64-186
@@ -1050,7 +1095,144 @@ def phase21_flagship(card, dev):
               f"{c.pop('line')}")
         checks[label] = c
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
-    return r["launches"], checks
+    return r["launches"], checks, (w, t, vals, r["plan"])
+
+
+def phase22_oracle(card, dev, flagship, limits=None):
+    """The reference-math side of the flagship comparison
+    (scripts/extend_oracle_torch.py, flagship_torch.py --ll-check) on
+    phase 21's workload, dataset and leg plan: the extension's start ll
+    through a pool of ORACLE_WORKERS spawned processes equal to the
+    serial one (its curves in series in one of those workers) bit for
+    bit; N_ITERS_EXTENSION iterations of the extension
+    from the committed chain in that pool, equal to the committed
+    extended chain's first ones bit for bit; the ll check's 16 committed
+    states through the leg's evaluation on the card, each within its
+    LL_CHECK_DLL_LIMITS (or `limits`) of its committed oracle ll; the
+    states whose rows all went through the float64 rung (every state
+    above mu_n 50 must) within rel LL_CHECK_CARD_RTOL of the same
+    evaluation through the plain version on the host, and at the others'
+    rows the std float kernel against its plain version on the card
+    (kernel_vs_plain). Returns the card evaluation's launches."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import extend_oracle_torch as eot
+    import flagship_torch as ft
+    import posterior_torch as pt
+
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    limits = LL_CHECK_DLL_LIMITS if limits is None else limits
+    t_phase = time.perf_counter()
+    w, t, vals, plan = flagship
+    resume = eot.load_resume(None, w.active)
+    n0 = resume["n_done"]
+    cov, start = eot.proposal(resume, w.active)
+    state = {**w.start, **start}
+    with pt.oracle_pool(ORACLE_WORKERS) as pool:
+        # serial: the 6 curves one after another in one worker, whose one
+        # BLAS thread the others have too (at nx=128 LSODA's bits depend
+        # on the BLAS thread count)
+        t0 = time.perf_counter()
+        ll_serial = pool.apply(pt.oracle_logll, (w, t, vals, state))
+        serial_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ll_pool = pt.oracle_logll(w, t, vals, state, pool)
+        pool_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        samples, _ = pt.run_oracle_mh(
+            w, t, vals, n0 + N_ITERS_EXTENSION, resume=resume, cov=cov,
+            start=start, workers=ORACLE_WORKERS, pool=pool,
+            log=lambda line: None)
+        ext_s = time.perf_counter() - t0
+    new = np.stack([samples[k][n0:] for k in w.active], axis=1)
+    print(f"phase 22: the extension's start ll {ll_serial!r} serial in one "
+          f"worker ({serial_s:.2f} s), {ll_pool!r} over a pool of "
+          f"{ORACLE_WORKERS} "
+          f"({pool_s:.2f} s); {N_ITERS_EXTENSION} iterations from {n0} in "
+          f"{ext_s:.2f} s on the host")
+    if not (np.isfinite(ll_serial) and ll_pool == ll_serial):
+        raise RuntimeError("phase 22: the pool's start ll is not the serial "
+                           "one bit for bit")
+    if not (np.isfinite(new).all() and all(
+            (w.prior[k][0] < new[:, j]).all() and (new[:, j] <
+                                                   w.prior[k][1]).all()
+            for j, k in enumerate(w.active))):
+        raise RuntimeError("phase 22: an extension draw is not finite or "
+                           "outside the prior")
+    ext = eot.committed_extension()
+    if ext is None:
+        raise RuntimeError("phase 22: no committed extended chain")
+    z = np.load(ext)
+    if int(z["resumed_at"][0]) != n0:
+        raise RuntimeError(f"phase 22: {ext} was not started at {n0}")
+    want = np.stack([z[k][n0:n0 + N_ITERS_EXTENSION] for k in w.active],
+                    axis=1)
+    if not np.array_equal(new, want):
+        raise RuntimeError(f"phase 22: the extension's draws differ from "
+                           f"{Path(ext).name}'s first ones")
+    print(f"phase 22: the {N_ITERS_EXTENSION} draws equal "
+          f"{Path(ext).name}'s {n0}..{n0 + N_ITERS_EXTENSION - 1} bit for "
+          "bit")
+
+    # the ll check's committed states through the leg's evaluation
+    z = np.load(ft.LL_CHECK_STATES)
+    if list(z["names"]) != list(w.names):
+        raise RuntimeError("phase 22: the ll-check states' names differ")
+    states, ll_o = z["states"], z["ll_o"]
+    ll_k, rep_k, chunks, _ = ft.card_ll(plan, states, dev)
+    launches = {k: 0 for k in sk.LAUNCHES}
+    launches.update({("std", torch.float32): chunks[0]["launches_f32"],
+                     ("std", torch.float64): chunks[0]["launches_f64"]})
+    ll_p, rep_p, _, _ = ft.card_ll(plan, states, torch.device("cpu"))
+    dll = np.abs(ll_k - ll_o)
+    print("phase 22 ll-check states (mu_n " + ", ".join(
+        f"{m:.1f}" for m in z["mu_n"]) + f"): |ll - oracle ll| on the card "
+          f"{np.round(dll, 4).tolist()} (committed reading "
+          f"{np.round(z['dll'], 4).tolist()}); card - plain "
+          f"{np.round(ll_k - ll_p, 4).tolist()}; rows repaired "
+          f"{rep_k.tolist()} (plain {rep_p.tolist()}); std f32 / f64 "
+          f"launches {chunks[0]['launches_f32']} / "
+          f"{chunks[0]['launches_f64']}"
+          + (f", evaluation {chunks[0]['eval_ms']:.3f} ms, kernels f32 "
+             f"{chunks[0]['kernel_ms']['float32']:.3f} / f64 "
+             f"{chunks[0]['kernel_ms']['float64']:.3f} ms"
+             if "eval_ms" in chunks[0] else "") + f" on {card}")
+    # a state whose every row the float64 rung solved on both sides (each
+    # state above mu_n 50 must be one) is held to the plain version on the
+    # host; elsewhere the float32 fast path's card and host roundings
+    # differ and may flip the ladder's flags, so there the std float
+    # kernel is held to its plain version on the card at those rows
+    M = len(w.lengths)
+    rung = (rep_k == M) & (rep_p == M)
+    ridge = z["mu_n"] > ft.RIDGE_MU
+    if not (np.isfinite(ll_k).all() and rung[ridge].all() and np.all(
+            np.abs(ll_k - ll_p)[rung]
+            <= LL_CHECK_CARD_RTOL * np.abs(ll_p)[rung])):
+        raise RuntimeError("phase 22: the card's evaluation is not finite, "
+                           "a ridge state's rows did not all go to the rung, "
+                           "or a rung state differs from the plain version's")
+    _, fp, _ = plan.fwd[0]
+    c = kernel_vs_plain(card, dev, plan, fp, torch.float32, states[~rung],
+                        "phase 22 std_f32")
+    print(f"phase 22: {int(rung.sum())} states all through the rung equal "
+          f"the plain version on the host within rel {LL_CHECK_CARD_RTOL:g}; "
+          f"std_f32 at the other {int((~rung).sum())} states' rows: "
+          f"{c.pop('line')}")
+    if len(dll) != len(limits):
+        raise RuntimeError(f"phase 22: {len(dll)} states, want "
+                           f"{len(limits)}")
+    miss = ~(dll <= np.asarray(limits))
+    if miss.any():
+        raise RuntimeError(f"phase 22: states {np.nonzero(miss)[0]} over "
+                           f"their |dll| limits {limits} on the card")
+    if chunks[0]["launches_f32"] < 1 or (rep_k.sum() and
+                                         chunks[0]["launches_f64"] < 1):
+        raise RuntimeError("phase 22: the std kernels did not launch")
+    print(f"phase 22: every state within its |dll| limit {limits}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main():
@@ -1482,7 +1664,10 @@ def main():
     launches_mesh = phase20_mesh(card, work, fluences)
 
     # ---- phase 21: the flagship posterior's leg and ridge states ----
-    launches_flag, checks_flag = phase21_flagship(card, dev)
+    launches_flag, checks_flag, flagship = phase21_flagship(card, dev)
+
+    # ---- phase 22: the oracle chain's extension and the ll check ----
+    launches_llc = phase22_oracle(card, dev, flagship)
 
     # one entry per instantiation; launches are each model's main-path
     # counts; max_abs_err is in decades of the observables
@@ -1506,6 +1691,7 @@ def main():
         **{f"launches_mesh_{lb}": ln[(model, dtype)]
            for lb, ln in launches_mesh.items()},
         "launches_flagship": launches_flag[(model, dtype)],
+        "launches_ll_check": launches_llc[(model, dtype)],
         "ms_by_batch": by_batch[f"{model}_{dl}"]["ms"],
         "blocks_per_sm": by_batch[f"{model}_{dl}"]["blocks_per_sm"],
         **{k: v for k, v in by_batch[f"{model}_{dl}"].items()

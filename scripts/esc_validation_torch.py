@@ -38,7 +38,6 @@ Usage:
 """
 
 import argparse
-import multiprocessing
 import os
 import sys
 import time
@@ -59,7 +58,6 @@ from metrotrpl_tpu_torch import resolve_device  # noqa: E402
 from metrotrpl_tpu_torch.inference.likelihood import (  # noqa: E402
     ESCALATE_GATE_SCORE,
 )
-from metrotrpl_tpu_torch.oracle import solve_reference  # noqa: E402
 
 #: the mu_n bands [cm^2/Vs] of the unflagged and repaired rows: (label,
 #: lower bound exclusive, upper bound inclusive)
@@ -67,58 +65,17 @@ MU_BANDS = (("<= 30", -np.inf, 30.0), ("30-40", 30.0, 40.0),
             ("40-50", 40.0, 50.0), ("> 50", 50.0, np.inf))
 N_STATES = 192
 SHAPES = ("nx32", "nx128")
-BLAS_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
-                    "MKL_NUM_THREADS")
 CLASSES = ("unflagged", "repaired", "conceded")
 
 
-def oracle_row_ll(w, t, vals, state):
-    """(M,) reference-math ll of each curve at state (entry units, a
-    dict): float64 LSODA (the compiled RHS) and the tempered Gaussian at
-    T=1; -inf where the solve fails or is not positive
-    (esc_validation.py:50-66)."""
-    pm = {k: v * w.uc.get(k, 1) for k, v in state.items()}
-    out = np.empty(len(w.lengths))
-    for m, (L, v) in enumerate(zip(w.lengths, vals)):
-        try:
-            pl = solve_reference(pt._ic(w, m), L, w.nx, t, pm,
-                                 model=w.model, rhs="native")
-        except Exception:   # the reference concedes any failed solve
-            out[m] = -np.inf
-            continue
-        if not np.all(np.isfinite(pl)) or np.any(pl <= 0):
-            out[m] = -np.inf
-            continue
-        out[m] = -np.sum((np.log10(pl) - v) ** 2
-                         / (w.sigma ** 2 + 2 * w.unc ** 2))
-    return out
-
-
 def oracle_rows(w, t, vals, states, workers):
-    """(n, M) oracle_row_ll of each row of states (n, P), one state per
-    task over `workers` spawned processes (in this one if workers <= 1)."""
-    from metrotrpl_tpu_torch.runtime import native_rhs_available
-
-    native_rhs_available()      # build the compiled RHS once, up front
-    tasks = [(w, t, vals, dict(zip(w.names, map(float, s))))
-             for s in states]
-    if workers <= 1:
-        return np.stack([oracle_row_ll(*a) for a in tasks])
-    # one BLAS thread a worker (a spawned worker reads these when it
-    # imports numpy): LSODA's vector operations on a few hundred unknowns
-    # gain nothing from threads, and workers x threads oversubscribe the
-    # cores (5x slower a row at nx=128 with 8 workers on 8 cores)
-    saved = {k: os.environ.get(k) for k in BLAS_THREAD_VARS}
-    os.environ.update(dict.fromkeys(BLAS_THREAD_VARS, "1"))
-    try:
-        with multiprocessing.get_context("spawn").Pool(workers) as pool:
-            return np.stack(pool.starmap(oracle_row_ll, tasks))
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    """(n, M) oracle rows of each row of states (n, P)
+    (posterior_torch.oracle_logll_states over `workers` spawned
+    processes)."""
+    with pt.oracle_pool(workers) as pool:
+        return pt.oracle_logll_states(
+            w, t, vals, [dict(zip(w.names, map(float, s))) for s in states],
+            pool)[1]
 
 
 def thin_states(w, samples, n_states):

@@ -30,21 +30,42 @@ share of draws above mu_n = 50).
 
 Usage:
     python scripts/flagship_torch.py [--device cuda|cpu] [--legs f32,f64]
-        [--save-chains DIR]
+        [--save-chains DIR] [--oracle PATH]
         [--out docs/POSTERIOR_torch_flagship_h100.md]
-    python scripts/flagship_torch.py --assemble DIR [--out ...]
+    python scripts/flagship_torch.py --assemble DIR [--oracle PATH]
+        [--out ...]
+    python scripts/flagship_torch.py --assemble DIR --oracle PATH
+        --ll-check N [--workers W] [--ll-states PATH] [--device cuda|cpu]
+        [--out docs/LL_AGREEMENT_torch_flagship_h100.md]
 
 The first form walks each leg in --legs on the card (the default),
 saving each one's cold chains and numbers to DIR/flagship_<leg>.npz when
 --save-chains is given (scripts/esc_validation_torch.py reads the f32
 leg's), and writes the report to --out. The second walks nothing: it
-writes the report from the legs saved in DIR.
+writes the report from the legs saved in DIR. Both compare with the
+chain --oracle (default the committed one; the extended chain of
+scripts/extend_oracle_torch.py is read to its n_done).
+
+The third is the flagship form of posterior_compare.run_ll_check: N
+states, a third each from the committed chain past its burn-in, the
+extended chain PATH past the committed chain's 3200 iterations, and the
+f32 leg saved in DIR (its flattened post-burn draws), thinned as
+run_ll_check thins; at each the float64 LSODA oracle's ll (over W
+spawned processes) against the leg's own evaluation on the card
+(float32 with the float64 rung, T=1, in chunks of 64 states x 6 rows).
+It reports run_ll_check's |dll| table, the same percentiles by mu_n
+band, and per chunk the rows repaired, the std kernels' launches and
+their ms by CUDA events; and writes 16 of the states (8 above mu_n 50, 8
+below) with their oracle ll and the card's |dll| to --ll-states, the
+file chip_smoke.py's phase 22 reads.
 """
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -92,6 +113,14 @@ DERIVED = {
 }
 #: the ridge lines' threshold on mu_n [cm^2/Vs]
 RIDGE_MU = 50
+#: the ll check: states per card evaluation (x 6 rows), the committed
+#: chain's length (the extended chain's burn-in), and the file of the
+#: states chip_smoke.py holds the card to (N_FILE_STATES // 2 above
+#: RIDGE_MU and as many below)
+LL_CHECK_CHUNK = 64
+N_COMMITTED = 3200
+LL_CHECK_STATES = os.path.join(HERE, ".ll_check_states_torch.npz")
+N_FILE_STATES = 16
 
 
 def flagship_workload():
@@ -222,10 +251,36 @@ def _fmt(m, s, e):
     return f"10^({m:.4f} +/- {s:.4f}) ({e:.0f})"
 
 
+def chain_runs(path):
+    """A line on how an extended chain was walked (extend_oracle_torch.py
+    records each run's first iteration, s per iteration and workers), or
+    "" for a chain without that record."""
+    z = np.load(path)
+    if "resumed_at" not in z.files:
+        return ""
+    runs = "; ".join(
+        f"from {int(a)}: {s:.3f} s an iteration on {int(n)} worker(s)"
+        for a, s, n in zip(z["resumed_at"], z["s_per_iter"], z["workers"]))
+    m = re.search(r"_ext_torch_(\d+)_", os.path.basename(path))
+    target = int(m.group(1)) if m else None
+    n = int(z["n_done"])
+    moved = np.any([np.diff(z[k][N_COMMITTED - 1:n]) != 0 for k in z.files
+                    if k in STAUB_NAMES], axis=0)
+    short = (f" The extension's target was {target} iterations: it stopped "
+             f"at {int(z['n_done'])}, short of it."
+             if target and n < target else "")
+    return (f"  Extended from the committed chain's {N_COMMITTED} iterations "
+            f"by scripts/extend_oracle_torch.py (a fixed Gaussian proposal, "
+            f"the committed chain's post-burn covariance x 2.38^2/10), in "
+            f"runs resumed on fresh substreams: {runs}; acceptance past "
+            f"{N_COMMITTED} {moved.mean():.3f}.{short}")
+
+
 def report(w, legs, oracle_path=ORACLE_CHAIN, reproduce=""):
     """Markdown lines of the report. legs: leg name -> (samples,
     summary)."""
     oracle, acc_o, n_o = read_chain(oracle_path, w.active)
+    runs = chain_runs(oracle_path)
     rows = comparison_rows(w, oracle, {n: s for n, (s, _) in legs.items()})
     cards = {s["card"] for _, s in legs.values()}
     card = "; ".join(sorted(cards))
@@ -249,6 +304,7 @@ def report(w, legs, oracle_path=ORACLE_CHAIN, reproduce=""):
         "float64 LSODA Metropolis chain",
         f"  (fixed Gaussian ridge proposal), {n_o} iterations (burn-in "
         f"{n_o // 3}), acceptance {acc_o:.3f}.",
+        *([runs] if runs else []),
     ]
     for name, (_, s) in legs.items():
         lpi = ", ".join(f"{k} {v:.3f}" for k, v in
@@ -309,6 +365,291 @@ def report(w, legs, oracle_path=ORACLE_CHAIN, reproduce=""):
     return lines
 
 
+def ll_check_states(w, sources, n_states):
+    """(n_states // len(sources) per source, P) states for the ll check:
+    from each source (samples: active name -> (n,) draws, n, burn) the
+    draws at np.linspace(burn, n - 1, n_states // len(sources)) as int
+    (posterior_compare.run_ll_check's thinning); the inactive parameters
+    at the truth."""
+    parts = []
+    for samples, n, burn in sources:
+        idx = np.linspace(burn, n - 1, n_states // len(sources)).astype(int)
+        parts.append({k: np.asarray(samples[k])[idx] for k in w.active})
+    chosen = {k: np.concatenate([p[k] for p in parts]) for k in w.active}
+    S = len(chosen[w.active[0]])
+    return np.stack([chosen[k] if k in chosen else np.full(S, w.true[k])
+                     for k in w.names], axis=1)
+
+
+@contextlib.contextmanager
+def kernel_events():
+    """CUDA events around every launch of the solve kernel inside the
+    block: yields a list that gets (dtype, start, end) per launch."""
+    from metrotrpl_tpu_torch.solver import forward
+
+    launch = forward.integrate_observables_cuda
+    spans = []
+
+    def timed(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(*args, **kw)
+        e1.record()
+        spans.append((args[1].dtype, e0, e1))
+        return out
+
+    forward.integrate_observables_cuda = timed
+    try:
+        yield spans
+    finally:
+        forward.integrate_observables_cuda = launch
+
+
+def card_ll(plan, states, device, chunk=LL_CHECK_CHUNK):
+    """The leg's evaluation (make_eval_logll on its plan, a float32 walk
+    with the float64 rung, T=1) of states (S, P), in chunks of `chunk`
+    states. Returns (ll (S,), rows repaired per state (S,), one dict per
+    chunk, each row's ll (S, M)). A chunk's dict: states, rows repaired,
+    the std kernels' launches and rows by dtype, and on the card the
+    evaluation's and each dtype's kernel ms by CUDA events; there the
+    first chunk is evaluated once before, untimed, so that no time
+    includes the kernel library's build."""
+    from metrotrpl_tpu_torch.inference.likelihood import make_eval_logll
+    from metrotrpl_tpu_torch.solver import solve_kernel as sk
+
+    f32, f64 = torch.float32, torch.float64
+    on_card = device.type == "cuda"
+    ev = make_eval_logll(plan, dtype=f32, device=device)
+    temps = torch.ones(1, dtype=f32, device=device)
+
+    def run(block):
+        o = ev(torch.as_tensor(block, dtype=f32, device=device), temps)
+        return (o["logll_T"][:, 0].double().cpu().numpy(),
+                o["repair_states"].cpu().numpy(),
+                o["per_meas"][..., 0].double().cpu().numpy())
+
+    if on_card:
+        run(states[:chunk])
+    lls, reps, rows, chunks = [], [], [], []
+    for c0 in range(0, len(states), chunk):
+        block = states[c0:c0 + chunk]
+        sk.reset_launch_counts()
+        c = {"states": len(block)}
+        if on_card:
+            torch.cuda.synchronize(device)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            with kernel_events() as spans:
+                e0.record()
+                ll, rep, row = run(block)
+                e1.record()
+                torch.cuda.synchronize(device)
+            c["eval_ms"] = e0.elapsed_time(e1)
+            c["kernel_ms"] = {
+                str(d).split(".")[-1]: sum(a.elapsed_time(b)
+                                           for dt, a, b in spans if dt == d)
+                for d in (f32, f64)}
+        else:
+            ll, rep, row = run(block)
+        c["repaired"] = int(rep.sum())
+        for dl, d in (("f32", f32), ("f64", f64)):
+            c[f"launches_{dl}"] = sk.LAUNCHES[("std", d)]
+            c[f"rows_{dl}"] = sk.ROWS[("std", d)]
+        lls.append(ll)
+        reps.append(rep)
+        rows.append(row)
+        chunks.append(c)
+    return (np.concatenate(lls), np.concatenate(reps), chunks,
+            np.concatenate(rows))
+
+
+def ll_table(ll_t, ll_o):
+    """posterior_compare.run_ll_check's summary of d = ll_t - ll_o:
+    {"q": |d| p50, p90, p99, max over the states finite in both,
+    "scale": median |ll_o| there, "finite", "n", "over1", "over20",
+    "suppress": states of the > 1 tail with ll_t < ll_o - 1}."""
+    with np.errstate(invalid="ignore"):     # -inf - -inf: not finite
+        d = ll_t - ll_o
+    fin = np.isfinite(d)
+    ad = np.abs(d[fin])
+    return {"q": np.percentile(ad, [50, 90, 99, 100]),
+            "scale": float(np.median(np.abs(ll_o[fin]))),
+            "finite": int(fin.sum()), "n": len(d),
+            "over1": int((ad > 1).sum()), "over20": int((ad > 20).sum()),
+            "suppress": int((d[fin] < -1).sum())}
+
+
+def ll_table_lines(tab):
+    """run_ll_check's table row and its finite and tail sentences."""
+    q, S = tab["q"], tab["n"]
+    return [
+        "| \\|dll\\| median | p90 | p99 | max | ll scale (median |ll|) |",
+        "|---|---|---|---|---|",
+        f"| {q[0]:.3f} | {q[1]:.3f} | {q[2]:.3f} | {q[3]:.3f} | "
+        f"{tab['scale']:.0f} |",
+        "",
+        f"{tab['finite']}/{S} states finite in both"
+        f" ({S - tab['finite']} -inf/diverged mismatches).",
+        f"Tail: {tab['over1']}/{S} states exceed |dll| 1, "
+        f"{tab['over20']}/{S} exceed 20"
+        + (f"; of the >1 tail, {tab['suppress']}/{tab['over1']} SUPPRESS "
+           "density (ll_tpu < ll_oracle), thinning the tpu walk there "
+           "rather than attracting it" if tab["over1"] else "") + ".",
+    ]
+
+
+def file_states(mu_n, n=N_FILE_STATES):
+    """Indices of n // 2 states above RIDGE_MU and n // 2 at or below it,
+    each half evenly spaced through its states in the check's order."""
+    idx = []
+    for sel in (mu_n > RIDGE_MU, ~(mu_n > RIDGE_MU)):
+        where = np.nonzero(sel)[0]
+        if len(where) < n // 2:
+            raise RuntimeError(f"{len(where)} states on one side of mu_n "
+                               f"{RIDGE_MU}, want {n // 2}")
+        idx += where[np.linspace(0, len(where) - 1, n // 2)
+                     .astype(int)].tolist()
+    return np.array(idx)
+
+
+def ll_check(w, oracle_path, legs_dir, n_states, workers, device, card,
+             states_out=LL_CHECK_STATES):
+    """The flagship ll check: n_states states, a third each from the
+    committed chain past its burn-in, the extended chain at oracle_path
+    past the committed chain's length, and the saved f32 leg's flattened
+    post-burn draws; each through the LSODA oracle (oracle_logll_states,
+    `workers` spawned processes) and the leg's evaluation (card_ll).
+    Writes the N_FILE_STATES states chip_smoke.py checks to states_out,
+    with every state's source, ll and rows on both sides.
+    Returns (the report's lines, whether the file was written)."""
+    from esc_validation_torch import dll_percentiles, mu_band_masks
+
+    committed, _, n_c = read_chain(ORACLE_CHAIN, w.active)
+    ext, _, n_e = read_chain(oracle_path, w.active)
+    if n_e <= N_COMMITTED:
+        raise ValueError(f"{oracle_path} holds {n_e} iterations: the ll "
+                         f"check wants a chain extended past {N_COMMITTED}")
+    leg, _ = load_leg(os.path.join(legs_dir, "flagship_f32.npz"),
+                         w.active)
+    flat = {k: np.asarray(v)[len(v) // 3:].ravel() for k, v in leg.items()}
+    n_f = len(flat[w.active[0]])
+    sources = [(committed, n_c, n_c // 3), (ext, n_e, N_COMMITTED),
+               (flat, n_f, 0)]
+    labels = [f"the committed chain ({n_c} iterations, past {n_c // 3})",
+              f"the extended chain ({os.path.relpath(oracle_path, REPO)}, "
+              f"iterations {N_COMMITTED} to {n_e - 1})",
+              f"the float32 leg's cold chains (post-burn, flattened: "
+              f"{n_f} draws)"]
+    states = ll_check_states(w, sources, n_states)
+    S = len(states)
+    per = S // len(sources)
+    mu_n = states[:, w.names.index("mu_n")]
+    t, vals, digest = checked_dataset(w)
+    t0 = time.perf_counter()
+    with pt.oracle_pool(workers) as pool:
+        ll_o, rows_o = pt.oracle_logll_states(
+            w, t, vals, [dict(zip(w.names, map(float, s))) for s in states],
+            pool)
+    oracle_s = time.perf_counter() - t0
+    print(f"ll check: {S} oracle states in {oracle_s:.1f} s on {workers} "
+          "worker(s)", flush=True)
+    plan = pt.build_plans(w, t, vals, **{k: pt.LEGS["fast"][k] for k in (
+        "hmax", "refactor", "refine")})[0]
+    ll_t, rep, chunks, rows_t = card_ll(plan, states, device)
+    with np.errstate(invalid="ignore"):
+        d = ll_t - ll_o
+    tab = ll_table(ll_t, ll_o)
+    on_card = device.type == "cuda"
+    lines = [
+        "# Log-likelihood agreement on the flagship ridge, on the card",
+        "",
+        f"Pointwise |ll_card - ll_oracle| at {S} states ({per} from each "
+        "source, thinned as posterior_compare.run_ll_check thins:",
+        "`np.linspace(burn, n - 1, N // 3).astype(int)`), "
+        f"{int((mu_n > RIDGE_MU).sum())} of them above mu_n = {RIDGE_MU} "
+        "cm^2/Vs:",
+        "",
+        *[f"{i + 1}. {lb}: mu_n {mu_n[i * per:(i + 1) * per].min():.1f} to "
+          f"{mu_n[i * per:(i + 1) * per].max():.1f}, "
+          f"{int((mu_n[i * per:(i + 1) * per] > RIDGE_MU).sum())} above "
+          f"{RIDGE_MU}" for i, lb in enumerate(labels)],
+        "",
+        "Card side: the float32 leg's own evaluation (make_eval_logll on the "
+        "fast plan, hmax 48, chord",
+        "blocks of 4, the escalation ladder inline with its float64 rung; "
+        f"T=1) in chunks of {LL_CHECK_CHUNK} states x 6 rows,",
+        f"on {card}. Oracle side: float64 LSODA reference math (the "
+        f"compiled RHS), {workers} worker processes",
+        f"on the host ({oracle_s:.1f} s). Flagship dataset SHA-256 "
+        f"{digest}. sup |dll| = eps bounds the",
+        "posterior density ratio by e^(2 eps) at these states, with no "
+        "Monte-Carlo mixing error.",
+        "",
+        *ll_table_lines(tab),
+        "",
+        "By the state's mu_n band [cm^2/Vs] (esc_validation_torch.MU_BANDS):",
+        "",
+        "| mu_n band | states | rows repaired | p50 \\|dll\\| | p90 | p99 | "
+        "max | finite |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for lb, sel in mu_band_masks(mu_n).items():
+        q = dll_percentiles(d[sel])
+        cell = ("- | - | - | - | 0" if q is None else
+                " | ".join(f"{v:.3f}" for v in q[:4]) + f" | {q[4]}")
+        lines.append(f"| {lb} | {int(sel.sum())} | {int(rep[sel].sum())} | "
+                     f"{cell} |")
+    lines += ["", "Per chunk of the card side ("
+              + (f"CUDA events on {card}: the evaluation, and "
+                 "the solve kernel's launches summed per dtype"
+                 if on_card else "the plain PyTorch path, no card: no "
+                 "launch, no time") + "):", "",
+              "| chunk | states | mu_n | rows repaired | std f32 launches "
+              "(rows) | std f64 launches (rows) | evaluation ms | kernel ms "
+              "f32 | kernel ms f64 |", "|---|---|---|---|---|---|---|---|---|"]
+    for i, c in enumerate(chunks):
+        m = mu_n[i * LL_CHECK_CHUNK:i * LL_CHECK_CHUNK + c["states"]]
+        ms = ([f"{c['eval_ms']:.3f}", f"{c['kernel_ms']['float32']:.3f}",
+               f"{c['kernel_ms']['float64']:.3f}"] if on_card
+              else ["not measured"] * 3)
+        lines.append(f"| {i} | {c['states']} | {m.min():.1f}-{m.max():.1f} "
+                     f"| {c['repaired']} | {c['launches_f32']} "
+                     f"({c['rows_f32']}) | {c['launches_f64']} "
+                     f"({c['rows_f64']}) | " + " | ".join(ms) + " |")
+    tail = np.nonzero(~(np.abs(d) <= 1))[0]
+    src = np.repeat(np.arange(len(sources)), per)
+    lines += ["", f"The states with |dll| > 1 or not finite ({len(tail)}; "
+              "source as numbered above; per-row dll = card - oracle of each "
+              "curve, 311 / 2000 nm at the three fluences in turn):", "",
+              "| state | source | mu_n | mu_p | oracle ll | card ll | dll | "
+              "rows repaired | per-row dll |", "|---|---|---|---|---|---|---|"
+              "---|---|"]
+    for i in tail:
+        with np.errstate(invalid="ignore"):
+            dr = rows_t[i] - rows_o[i]
+        lines.append(
+            f"| {i} | {src[i] + 1} | {mu_n[i]:.2f} | "
+            f"{states[i, w.names.index('mu_p')]:.2f} | {ll_o[i]:.3f} | "
+            f"{ll_t[i]:.3f} | {d[i]:.3f} | {rep[i]} | "
+            + ", ".join(f"{v:.3f}" for v in dr) + " |")
+    try:
+        pick = file_states(mu_n)
+    except RuntimeError as e:       # the report stands; the file does not
+        return lines + ["", f"No states file written: {e}."], False
+    np.savez(states_out, names=np.array(w.names), states=states[pick],
+             ll_o=ll_o[pick], mu_n=mu_n[pick], ll_card=ll_t[pick],
+             dll=np.abs(d[pick]), repaired=rep[pick], picked=pick,
+             all_states=states, all_source=src, all_ll_o=ll_o,
+             all_rows_o=rows_o, all_ll_card=ll_t, all_rows_card=rows_t,
+             all_repaired=rep)
+    lines += ["", f"The {len(pick)} states chip_smoke.py phase 22 holds the "
+              f"card to ({os.path.relpath(states_out, REPO)}): mu_n "
+              + ", ".join(f"{v:.1f}" for v in mu_n[pick]) + "; |dll| "
+              + ", ".join(f"{v:.4f}" for v in np.abs(d[pick])) + "."]
+    return lines, True
+
+
 def main(argv=None):
     from metrotrpl_tpu_torch.solver.kernel_times import nvidia_smi_line
 
@@ -319,10 +660,41 @@ def main(argv=None):
                     help="save each leg to DIR/flagship_<leg>.npz")
     ap.add_argument("--assemble", default=None, metavar="DIR",
                     help="walk nothing: report the legs saved in DIR")
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "docs", "POSTERIOR_torch_flagship_h100.md"))
+    ap.add_argument("--oracle", default=ORACLE_CHAIN, metavar="PATH",
+                    help="the reference-math chain to compare with (its "
+                         "draws to n_done); --ll-check takes its states past "
+                         f"{N_COMMITTED} from it")
+    ap.add_argument("--ll-check", type=int, default=0, metavar="N",
+                    help="walk nothing: the ll check at N states, the f32 "
+                         "leg's from --assemble DIR")
+    ap.add_argument("--workers", type=int, default=os.cpu_count() or 1,
+                    help="oracle processes of --ll-check")
+    ap.add_argument("--ll-states", default=LL_CHECK_STATES, metavar="PATH",
+                    help=f"where --ll-check writes its {N_FILE_STATES} "
+                         "states for chip_smoke.py")
+    ap.add_argument("--out", default=None, help="the report (default: "
+                    "docs/POSTERIOR_torch_flagship_h100.md, with --ll-check "
+                    "docs/LL_AGREEMENT_torch_flagship_h100.md)")
     args = ap.parse_args(argv)
     w = flagship_workload()
+    cmd = " ".join(["python scripts/flagship_torch.py"]
+                   + (argv if argv is not None else sys.argv[1:]))
+    if args.ll_check:
+        if not args.assemble:
+            ap.error("--ll-check takes the f32 leg saved by --save-chains "
+                     "DIR: give --assemble DIR")
+        device = resolve_device(args.device)
+        card = (nvidia_smi_line() if device.type == "cuda"
+                else "the CPU (plain PyTorch path, no card)")
+        print(f"card: {card}", flush=True)
+        lines, wrote = ll_check(w, args.oracle, args.assemble, args.ll_check,
+                                args.workers, device, card, args.ll_states)
+        lines += ["", f"Reproduce: `{cmd}`."]
+        write_doc(lines, args.out or os.path.join(
+            REPO, "docs", "LL_AGREEMENT_torch_flagship_h100.md"))
+        if not wrote:
+            sys.exit("the ll check wrote no states file")
+        return
     legs = {}
     if args.assemble:
         for name in args.legs.split(","):
@@ -348,18 +720,22 @@ def main(argv=None):
                 save_leg(os.path.join(args.save_chains,
                                       f"flagship_{name}.npz"),
                          r["samples"], summary)
-    reproduce = " ".join(["python scripts/flagship_torch.py"]
-                         + (argv if argv is not None else sys.argv[1:]))
+    reproduce = cmd
     if args.assemble:
         reproduce = (f"python scripts/flagship_torch.py --legs {args.legs} "
                      f"--save-chains {args.assemble}` on the card, then `"
                      + reproduce)
-    lines = report(w, legs, reproduce=reproduce)
+    write_doc(report(w, legs, args.oracle, reproduce=reproduce),
+              args.out or os.path.join(
+                  REPO, "docs", "POSTERIOR_torch_flagship_h100.md"))
+
+
+def write_doc(lines, path):
     print("\n".join(lines), flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
-    print(f"wrote {args.out}")
+    print(f"wrote {path}")
 
 
 if __name__ == "__main__":

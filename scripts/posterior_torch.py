@@ -47,11 +47,21 @@ inline) against float64 on the same plan, per curve, at 32 states drawn
 around the committed gold column. With --acceptance-check N it walks
 only the fast leg, N iterations in float32 and again in float64, and
 prints each one's acceptance.
+
+It also holds the reference-math side of posterior_compare.py: the
+float64 LSODA oracle's log-likelihood (``oracle_curve_ll``,
+``oracle_row_ll``, ``oracle_logll``, its curves solved in a pool of
+spawned processes by ``oracle_pool``) and its serial Metropolis chain
+(``run_oracle_mh``), which scripts/extend_oracle_torch.py and
+scripts/esc_validation_torch.py use.
 """
 
 import argparse
+import contextlib
+import multiprocessing
 import os
 import re
+import signal
 import sys
 import time
 from typing import NamedTuple
@@ -170,13 +180,230 @@ def make_dataset(w):
     return t, vals
 
 
-def build_plans(w, t, vals, hmax, refactor, refine, escalate=True):
-    """(likelihood plan, move plan) of one leg; escalate=False builds the
-    likelihood plan without the escalation ladder (every row as the fast
-    solve leaves it, never solved again)."""
-    from metrotrpl_tpu_torch.inference.likelihood import build_likelihood_plan
-    from metrotrpl_tpu_torch.inference.moves import build_move_plan
+#: the BLAS thread counts a spawned oracle worker reads when it imports
+#: numpy
+BLAS_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                    "MKL_NUM_THREADS")
 
+
+def oracle_curve_ll(w, t, vals, state, m):
+    """Reference-math ll of curve m at state (entry units, a dict):
+    float64 LSODA (the compiled RHS) and the tempered Gaussian at T=1;
+    -inf where the solve fails or is not positive
+    (posterior_compare.py:122-140, esc_validation.py:50-66)."""
+    pm = {k: v * w.uc.get(k, 1) for k, v in state.items()}
+    try:
+        pl = solve_reference(_ic(w, m), w.lengths[m], w.nx, t, pm,
+                             model=w.model, rhs="native")
+    except Exception:   # the reference concedes any failed solve
+        return -np.inf
+    if not np.all(np.isfinite(pl)) or np.any(pl <= 0):
+        return -np.inf
+    return -np.sum((np.log10(pl) - vals[m]) ** 2
+                   / (w.sigma ** 2 + 2 * w.unc ** 2))
+
+
+def oracle_row_ll(w, t, vals, state):
+    """(M,) oracle_curve_ll of each curve at state."""
+    return np.array([oracle_curve_ll(w, t, vals, state, m)
+                     for m in range(len(w.lengths))])
+
+
+@contextlib.contextmanager
+def oracle_pool(workers):
+    """A spawned process pool of `workers` oracle workers, one BLAS thread
+    each (LSODA's vector operations on a few hundred unknowns gain nothing
+    from threads, and workers x threads oversubscribe the cores: 5x slower
+    a row at nx=128 with 8 workers on 8 cores); the compiled RHS is built
+    here first, once. Closed and joined on exit. At nx=128 LSODA's bits
+    depend on the BLAS thread count (the flagship dataset's digest holds
+    with 8 threads on an 8-core host, not with 1 to 4): an ll from a
+    worker can differ in its last ~1e-4 from the same ll computed in a
+    process with more threads, and equals it from any other worker bit
+    for bit."""
+    from metrotrpl_tpu_torch.runtime import native_rhs_available
+
+    native_rhs_available()
+    saved = {k: os.environ.get(k) for k in BLAS_THREAD_VARS}
+    os.environ.update(dict.fromkeys(BLAS_THREAD_VARS, "1"))
+    try:
+        pool = multiprocessing.get_context("spawn").Pool(
+            workers, initializer=_ignore_stop_signals)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        yield pool
+    finally:
+        # the workers ignore SIGTERM, so they are let go, not terminated:
+        # each leaves when the tasks under way are done
+        pool.close()
+        pool.join()
+
+
+def _ignore_stop_signals():
+    """A pool worker's initializer: SIGTERM and SIGINT to the process
+    group (timeout's, a terminal's) stop the caller between tasks and
+    never a worker in the middle of one; SIGKILL still reaches it."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+
+
+def oracle_logll(w, t, vals, state, pool=None):
+    """Reference-math log-likelihood of state (entry units, a dict): the
+    curves' oracle_curve_ll summed in curve order, -inf as soon as one is
+    (posterior_compare.oracle_logll). With a pool the M curves are solved
+    one per task there and summed here in the same order, so the result is
+    the serial one bit for bit."""
+    M = len(w.lengths)
+    if pool is None:
+        return _sum_curves(oracle_curve_ll(w, t, vals, state, m)
+                           for m in range(M))
+    return _sum_curves(pool.starmap(
+        oracle_curve_ll, [(w, t, vals, state, m) for m in range(M)]))
+
+
+def oracle_logll_states(w, t, vals, states, pool):
+    """((n,) oracle_logll of each state (a dict) of states, (n, M) its
+    curves' oracle_curve_ll): every (state, curve) a task in pool, each
+    state's curves summed in curve order."""
+    M = len(w.lengths)
+    rows = np.array(pool.starmap(oracle_curve_ll, [
+        (w, t, vals, s, m) for s in states for m in range(M)]))
+    rows = rows.reshape(len(states), M)
+    return np.array([_sum_curves(r) for r in rows]), rows
+
+
+def _sum_curves(rows):
+    """The curves' ll summed in order from 0.0 (the reference subtracts
+    each curve's squared error from 0.0: the same bits), -inf as soon as
+    one is."""
+    ll = 0.0
+    for r in rows:
+        if r == -np.inf:
+            return -np.inf
+        ll += r
+    return ll
+
+
+def oracle_seed(w, cov, it0):
+    """The seed of the oracle chain's draw stream from iteration it0 on:
+    the uniform proposal's substream w.seed + 1, the fixed-covariance
+    one's w.seed + 100001, each offset by it0 so that a resumed chain
+    draws afresh (posterior_compare.py:172-174, :188)."""
+    return w.seed + (100001 if cov is not None else 1) + it0
+
+
+def run_oracle_mh(w, t, vals, n_iters, partial_path=None, resume=None,
+                  cov=None, start=None, workers=1, pool=None, log=print,
+                  stop=None):
+    """The serial reference-math Metropolis chain
+    (posterior_compare.run_oracle_mh, line for line): a uniform proposal
+    of half-width w.width per active parameter in log10, or with cov a
+    fixed symmetric Gaussian x' = x + chol(cov) z; the 100-try hard-bounds
+    retry, then the tn_tp_close and p0 > n0 screens; accepted when
+    log(u) < ll_new - ll. Each state's ll is oracle_logll, its curves
+    solved in one persistent pool of `workers` spawned processes for the
+    chain's lifetime (in this process if workers <= 1), or in `pool`.
+
+    resume: {"n_done", "acc", active name -> the first n_done draws, and
+    optionally the earlier runs' "resumed_at", "s_per_iter" and
+    "workers"}; the chain continues from its last draw on the substream
+    oracle_seed(w, cov, n_done), so a resumed chain depends on where it
+    was resumed, as the reference's does. start: {name: value} of the
+    initial state. pool: a running oracle_pool of `workers` processes.
+    Every 100 iterations and at the last, partial_path (if given) gets
+    n_done, acc, the draws so far and, per run of this function that
+    wrote the chain, its first iteration (resumed_at, 0 for a fresh
+    chain), its s per iteration and its worker count. stop: a callable
+    asked after every iteration; when it answers true the chain saves its
+    partial there and returns early. Returns (samples: active name ->
+    (n_iters,), filled up to the last iteration done; acceptance over
+    n_iters)."""
+    state = dict(w.start)
+    if start is not None:
+        state.update(start)
+    active = w.active
+    samples = {k: np.empty(n_iters) for k in active}
+    n_acc = 0
+    it0 = 0
+    L_chol = None
+    if cov is not None:
+        d = len(active)
+        L_chol = np.linalg.cholesky(cov + 1e-12 * np.eye(d))
+    # one entry per run of this function that wrote the chain
+    runs = {"resumed_at": [], "s_per_iter": [], "workers": []}
+    if resume is not None:
+        it0 = int(resume["n_done"])
+        for k in active:
+            samples[k][:it0] = resume[k]
+            state[k] = float(resume[k][-1])
+        n_acc = int(round(float(resume["acc"]) * it0))
+        runs = {k: list(resume.get(k, ())) for k in runs}
+        log(f"  (oracle MH resuming at {it0}/{n_iters})")
+    runs["resumed_at"].append(it0)
+    runs["s_per_iter"].append(np.nan)
+    runs["workers"].append(workers)
+    rng = np.random.default_rng(oracle_seed(w, cov, it0))
+    with contextlib.ExitStack() as stack:
+        if pool is None and workers > 1:
+            pool = stack.enter_context(oracle_pool(workers))
+        x = {k: np.log10(state[k]) for k in active}
+        ll = oracle_logll(w, t, vals, state, pool)
+        clock = time.perf_counter()
+        for it in range(it0, n_iters):
+            # symmetric proposal with hard-bounds retry
+            # (reference trial_move_generation.py:51-97)
+            for _ in range(100):
+                if L_chol is not None:
+                    step = L_chol @ rng.standard_normal(len(active))
+                    xn = {k: x[k] + step[j] for j, k in enumerate(active)}
+                else:
+                    xn = {k: x[k] + w.width * (2 * rng.random() - 1)
+                          for k in active}
+                if not all(w.prior[k][0] < 10 ** xn[k] < w.prior[k][1]
+                           for k in active):
+                    continue
+                # the walk's screens: |log10 tauN - log10 tauP| <= 2
+                # (reference tn_tp_close) and p0 > n0 (p0_greater)
+                ltn = xn.get("tauN", np.log10(state["tauN"]))
+                ltp = xn.get("tauP", np.log10(state["tauP"]))
+                if abs(ltn - ltp) > 2:
+                    continue
+                if 10 ** xn.get("p0", np.log10(state["p0"])) <= state["n0"]:
+                    continue
+                break
+            trial = dict(state)
+            trial.update({k: 10 ** xn[k] for k in active})
+            ll_new = oracle_logll(w, t, vals, trial, pool)
+            if np.log(rng.random()) < ll_new - ll:
+                x, state, ll = xn, trial, ll_new
+                n_acc += 1
+            for k in active:
+                samples[k][it] = 10 ** x[k]
+            if (it + 1) % 100 == 0:
+                spi = (time.perf_counter() - clock) / (it + 1 - it0)
+                runs["s_per_iter"][-1] = spi
+                log(f"  oracle MH {it + 1}/{n_iters} ({spi:.2f} s/iter on "
+                    f"{workers} worker(s), accept {n_acc / (it + 1):.2f})")
+            stopping = stop is not None and stop()
+            if partial_path and ((it + 1) % 100 == 0 or it + 1 == n_iters
+                                 or stopping):
+                np.savez(partial_path, n_done=it + 1, acc=n_acc / (it + 1),
+                         **{k: np.asarray(v) for k, v in runs.items()},
+                         **{k: samples[k][:it + 1] for k in active})
+            if stopping:
+                log(f"  oracle MH stopped at {it + 1}/{n_iters}")
+                break
+    return samples, n_acc / n_iters
+
+
+def plan_inputs(w, t, vals):
+    """(sim_info, param_info, mcmc, e_data, iniPar) of the workload: the
+    arguments build_likelihood_plan takes before its solver options."""
     param_info = {
         "names": w.names,
         "unit_conversions": w.uc,
@@ -193,6 +420,17 @@ def build_plans(w, t, vals, hmax, refactor, refine, escalate=True):
             "model_uncertainty": w.sigma, "hard_bounds": 1}
     iniPar = np.array([[f, a, 1] for f, a in w.flu])
     e_data = ([t] * M, vals, [np.full(w.nt, w.unc)] * M)
+    return sim_info, param_info, mcmc, e_data, iniPar
+
+
+def build_plans(w, t, vals, hmax, refactor, refine, escalate=True):
+    """(likelihood plan, move plan) of one leg; escalate=False builds the
+    likelihood plan without the escalation ladder (every row as the fast
+    solve leaves it, never solved again)."""
+    from metrotrpl_tpu_torch.inference.likelihood import build_likelihood_plan
+    from metrotrpl_tpu_torch.inference.moves import build_move_plan
+
+    sim_info, param_info, mcmc, e_data, iniPar = plan_inputs(w, t, vals)
     plan = build_likelihood_plan(sim_info, param_info, mcmc, e_data, iniPar,
                                  hmax=hmax, align_outputs=False,
                                  refactor_every=refactor, refine=refine,

@@ -107,6 +107,7 @@ def test_port_imports_and_builds_flagship_plans_without_jax(tmp_path):
         import posterior_torch
         import flagship_torch
         import esc_validation_torch
+        import extend_oracle_torch
         from metrotrpl_tpu_torch.runtime import load_csv, native_available
         assert native_available()
         assert load_csv("Inputs/real_staub_input.csv").shape[0] > 0
