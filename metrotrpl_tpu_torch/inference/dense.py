@@ -19,6 +19,7 @@ from metrotrpl_tpu_torch.inference.likelihood import (
     make_eval_logll,
     resolve_solver_mode,
 )
+from metrotrpl_tpu_torch.tracing import span
 
 
 def random_grid(min_x, max_x, do_log, num_samples, rng):
@@ -107,8 +108,9 @@ def bayes(N, P, init_params, sim_params, e_data, sim_flags, param_info,
     P = np.zeros(num_samples)
     for lo in range(0, num_samples, chunk):
         hi = min(lo + chunk, num_samples)
-        states = torch.as_tensor(X[lo:hi], dtype=dtype, device=device)
-        P[lo:hi] = ev(states, temps)["logll_T"][:, 0].cpu().numpy()
+        with span("metrotrpl.dense.chunk"):
+            states = torch.as_tensor(X[lo:hi], dtype=dtype, device=device)
+            P[lo:hi] = ev(states, temps)["logll_T"][:, 0].cpu().numpy()
         if logger is not None:
             logger.info(f"Calculated {hi} of {num_samples}")
     return N, P, X

@@ -17,6 +17,7 @@ equals the JAX "solve every row, then select" (likelihood.py:868-874).
 """
 
 import copy
+import functools
 import logging
 from typing import NamedTuple, Optional
 
@@ -30,6 +31,7 @@ from metrotrpl_tpu_torch.ops.interp import interp1d
 from metrotrpl_tpu_torch.physics.models import beer_lambert
 from metrotrpl_tpu_torch.solver.forward import make_forward_plan, solve_forward_batch
 from metrotrpl_tpu_torch.solver.sdirk import NEWTON_DAMP
+from metrotrpl_tpu_torch.tracing import span
 
 #: coarse-grid Newton-divergence threshold (see the JAX twin's calibration)
 NEWTON_DIV_TOL = 0.1
@@ -40,6 +42,9 @@ ESCALATE_MU_MODEL = 40.0 * 1e5
 #: escalation gate: a flagged row is repaired only when its fast solve's
 #: mean squared log10 distance to the data is below this [decades^2]
 ESCALATE_GATE_SCORE = 0.25
+
+#: the span of building a plan and of making its evaluator's tensors
+_BUILD_SPAN = "metrotrpl.likelihood.build"
 
 #: measurement-parameter names the forward model reads, in plan order
 _RAW_NAMES = ("n0", "p0", "mu_n", "mu_p", "ks", "Cn", "Cp", "Sf", "Sb",
@@ -141,6 +146,17 @@ def resolve_solver_mode(MCMC_fields, default_hmax, hmax=None,
     return hmax, align_outputs
 
 
+def _build_span(fn):
+    """fn inside a ``metrotrpl.likelihood.build`` span, recorded with or
+    without a profiler."""
+    @functools.wraps(fn)
+    def build(*args, **kwargs):
+        with span(_BUILD_SPAN, always=True):
+            return fn(*args, **kwargs)
+    return build
+
+
+@_build_span
 def build_likelihood_plan(sim_info, param_info, MCMC_fields, e_data, iniPar,
                           irf_tables=None, hmax=None, scheme="sdirk3",
                           newton_iters=2, refine=1, escalate=True,
@@ -430,26 +446,27 @@ def _make_irf_stage(plan, dtype, device):
     conv_pts = torch.arange(n_conv_pts, device=device)[None, :]
 
     def irf(sol):
-        K = sol.shape[0] // M
-        b_exp_t = _tile_rows(exp_times, K)
-        resampled = interp1d(_tile_rows(res_t, K), b_exp_t, sol)
-        resampled = torch.nan_to_num(resampled, nan=0.0)
-        conv = convolve_moments(resampled, _tile_rows(irf_tables, K))
-        b_n_conv = _tile_rows(n_conv, K)
-        conv_valid = conv_pts < b_n_conv[:, None]
-        conv_masked = torch.where(conv_valid, conv, -torch.inf)
-        shift_i = torch.argmax(conv_masked, dim=1)
-        b_conv_t = _tile_rows(conv_t_base, K)
-        t_shift = torch.gather(b_conv_t, 1, shift_i[:, None])
-        conv_t_shifted = b_conv_t - t_shift
-        # rows without an IRF have n_conv = 0: index -1 wraps to the last
-        # point, as numpy-style indexing does in the JAX twin
-        t_last = torch.gather(
-            b_conv_t, 1, torch.remainder(b_n_conv - 1, n_conv_pts)[:, None])
-        conv_fail = (t_last - t_shift)[:, 0] <= 0.0  # peak at the end
-        sol_irf = interp1d(b_exp_t, conv_t_shifted, conv)
-        irf_valid = b_exp_t < (t_last - t_shift)
-        return sol_irf, irf_valid, conv_fail
+        with span("metrotrpl.likelihood.irf"):
+            K = sol.shape[0] // M
+            b_exp_t = _tile_rows(exp_times, K)
+            resampled = interp1d(_tile_rows(res_t, K), b_exp_t, sol)
+            resampled = torch.nan_to_num(resampled, nan=0.0)
+            conv = convolve_moments(resampled, _tile_rows(irf_tables, K))
+            b_n_conv = _tile_rows(n_conv, K)
+            conv_valid = conv_pts < b_n_conv[:, None]
+            conv_masked = torch.where(conv_valid, conv, -torch.inf)
+            shift_i = torch.argmax(conv_masked, dim=1)
+            b_conv_t = _tile_rows(conv_t_base, K)
+            t_shift = torch.gather(b_conv_t, 1, shift_i[:, None])
+            conv_t_shifted = b_conv_t - t_shift
+            # rows without an IRF have n_conv = 0: index -1 wraps to the last
+            # point, as numpy-style indexing does in the JAX twin
+            t_last = torch.gather(b_conv_t, 1, torch.remainder(
+                b_n_conv - 1, n_conv_pts)[:, None])
+            conv_fail = (t_last - t_shift)[:, 0] <= 0.0  # peak at the end
+            sol_irf = interp1d(b_exp_t, conv_t_shifted, conv)
+            irf_valid = b_exp_t < (t_last - t_shift)
+            return sol_irf, irf_valid, conv_fail
 
     return irf
 
@@ -529,6 +546,15 @@ def _make_compare_pipeline(plan, dtype, device):
 _SOLVE_DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
+def _eval_span(fn):
+    """An eval_logll that runs fn inside a ``metrotrpl.likelihood.eval``
+    span."""
+    def eval_logll(states, temps):
+        with span("metrotrpl.likelihood.eval"):
+            return fn(states, temps)
+    return eval_logll
+
+
 def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
     """Build eval_logll(states (K, P), temps (Kt,)) -> dict with
     'logll_T' (K, Kt), 'per_meas' (K, M, Kt), 'n_solver_fail' (),
@@ -546,46 +572,49 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 
-    units = t(plan.units)
-    scale_idx = t(plan.scale_idx, torch.int64)
-    init_profiles = t(plan.init_profiles)
-    nt_exp = plan.exp_times.shape[1]
-    compare = _make_compare_pipeline(plan, dtype, device)
-    plan_tol = plan.newton_div_tol
-    esc_gate = float(plan.esc_gate_score)
-    tiny4 = 4 * float(torch.finfo(dtype).tiny)
-    damp_pin = 0.97 * float(NEWTON_DAMP)
+    with span(_BUILD_SPAN, always=True):
+        units = t(plan.units)
+        scale_idx = t(plan.scale_idx, torch.int64)
+        init_profiles = t(plan.init_profiles)
+        nt_exp = plan.exp_times.shape[1]
+        compare = _make_compare_pipeline(plan, dtype, device)
+        plan_tol = plan.newton_div_tol
+        esc_gate = float(plan.esc_gate_score)
+        tiny4 = 4 * float(torch.finfo(dtype).tiny)
+        damp_pin = 0.97 * float(NEWTON_DAMP)
 
-    groups = []
-    for g_idx, fp, fp_hi in plan.fwd:
-        Mg = len(g_idx)
-        gi = torch.as_tensor(g_idx, dtype=torch.int64, device=device)
-        nt_g = fp.nt
-        g = {
-            "idx": gi, "Mg": Mg, "fp": fp, "fp_hi": fp_hi,
-            "x": t(fp.x_centers),
-            "tol": (float(plan_tol) if plan_tol is not None
-                    else newton_div_tol_default(fp.nx)),
-            "hi_is_f64": fp_hi is not None and fp_hi.solve_dtype == "float64",
-            "vals": t(plan.exp_vals[g_idx][:, :nt_g]),
-            "mask": t(plan.exp_mask[g_idx][:, :nt_g], torch.bool),
-            "has_irf": t(plan.has_irf[g_idx], torch.bool),
-        }
-        groups.append(g)
+        groups = []
+        for g_idx, fp, fp_hi in plan.fwd:
+            Mg = len(g_idx)
+            gi = torch.as_tensor(g_idx, dtype=torch.int64, device=device)
+            nt_g = fp.nt
+            g = {
+                "idx": gi, "Mg": Mg, "fp": fp, "fp_hi": fp_hi,
+                "x": t(fp.x_centers),
+                "tol": (float(plan_tol) if plan_tol is not None
+                        else newton_div_tol_default(fp.nx)),
+                "hi_is_f64": (fp_hi is not None
+                              and fp_hi.solve_dtype == "float64"),
+                "vals": t(plan.exp_vals[g_idx][:, :nt_g]),
+                "mask": t(plan.exp_mask[g_idx][:, :nt_g], torch.bool),
+                "has_irf": t(plan.has_irf[g_idx], torch.bool),
+            }
+            groups.append(g)
 
-    def plan_tensors(fp_x, cdt):
-        """The per-measurement arrays of a forward plan on the device."""
-        return {"dx": t(fp_x.dx, cdt), "dt": t(fp_x.dt, cdt),
-                "out_idx": t(fp_x.out_idx, torch.int64),
-                "is_trpl": t(fp_x.is_trpl, torch.bool),
-                "out_w": None if fp_x.out_w is None else t(fp_x.out_w, cdt)}
+        def plan_tensors(fp_x, cdt):
+            """The per-measurement arrays of a forward plan on the device."""
+            return {"dx": t(fp_x.dx, cdt), "dt": t(fp_x.dt, cdt),
+                    "out_idx": t(fp_x.out_idx, torch.int64),
+                    "is_trpl": t(fp_x.is_trpl, torch.bool),
+                    "out_w": (None if fp_x.out_w is None
+                              else t(fp_x.out_w, cdt))}
 
-    for g in groups:
-        g["fp_t"] = plan_tensors(g["fp"], dtype)
-        if g["fp_hi"] is not None:
-            sd = g["fp_hi"].solve_dtype
-            g["hi_t"] = plan_tensors(
-                g["fp_hi"], dtype if sd is None else _SOLVE_DTYPES[sd])
+        for g in groups:
+            g["fp_t"] = plan_tensors(g["fp"], dtype)
+            if g["fp_hi"] is not None:
+                sd = g["fp_hi"].solve_dtype
+                g["hi_t"] = plan_tensors(
+                    g["fp_hi"], dtype if sd is None else _SOLVE_DTYPES[sd])
 
     def run_solve(fp_x, pt, rows, init_dN, raw, Mg):
         """Solve the given batch rows on plan fp_x; results in the walk
@@ -671,8 +700,10 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
             else:
                 repair = (fail_static(sol_g) | fail_resid(resid_g)) & gate
             if fp_hi is not None:
-                rows = torch.nonzero(repair).flatten()
-                if rows.numel():   # one host sync per group and evaluation
+                with span("metrotrpl.ladder.sync"):
+                    rows = torch.nonzero(repair).flatten()
+                    n_rows = rows.numel()  # one host sync per group and eval
+                if n_rows:
                     sol_hi, resid_hi = run_solve(fp_hi, g["hi_t"], rows,
                                                  init_dN, raw, Mg)
                     sol_g = sol_g.index_copy(0, rows, sol_hi)
@@ -702,7 +733,7 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
                 "resid": resid_full, "esc_score": score_full,
                 "repair_states": repair_states}
 
-    return eval_logll
+    return _eval_span(eval_logll)
 
 
 def u_potential(x):
@@ -734,7 +765,7 @@ def _make_eval_pa(plan, dtype, device):
         ll = -u[:, None] / temps[None, :]                     # (K, Kt)
         return {"logll_T": ll, "per_meas": ll[:, None, :],
                 **_no_solve_outputs(ll, states.shape[0], 1)}
-    return eval_pa
+    return _eval_span(eval_pa)
 
 
 #: the NN surrogate's state features, in the reference's order, before
@@ -789,4 +820,4 @@ def _make_eval_nn(plan, dtype, device):
         return {"logll_T": torch.sum(per_meas, dim=1), "per_meas": per_meas,
                 **_no_solve_outputs(ll, K, M)}
 
-    return eval_nn
+    return _eval_span(eval_nn)

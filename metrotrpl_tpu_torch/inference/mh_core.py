@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from metrotrpl_tpu_torch.inference.moves import make_trial_move
+from metrotrpl_tpu_torch.tracing import span
 
 
 class IterDraws(NamedTuple):
@@ -183,42 +184,43 @@ def make_window_body(eval_nf, move_plan, widths, temper_freq, do_tempering,
         nfail = torch.zeros((E,), dtype=torch.int64, device=dev)
         h_states, h_ll, h_acc = [], [], []
         for k in range(int(k0), int(k0) + int(n_iters)):
-            d = stack_draws([s.draws(k) for s in sources])
-            u_prop, u_mu, u_acc = d.u_prop, d.u_mu, d.u_acc
-            if K_l != K:   # the block's chains of each ensemble's draws
-                T = u_prop.shape[0]
-                u_prop = u_prop.reshape(T, E, K, P)[:, :, rows].reshape(
-                    T, E * K_l, P)
-                if u_mu is not None:
-                    u_mu = u_mu.reshape(T, E, K)[:, :, rows].reshape(
-                        T, E * K_l)
-                u_acc = u_acc[:, rows]
-            new_states = make_trial_move(states.reshape(E * K_l, P), w,
-                                         u_prop, u_mu, move_plan)
-            new_ll, nf = eval_nf(new_states)
-            new_states = new_states.reshape(E, K_l, P)
-            new_ll = new_ll.reshape(E, K_l, K)
-            nfail = nfail + nf.reshape(E, K_l).sum(dim=1)
+            with span("metrotrpl.walk.iteration"):
+                d = stack_draws([s.draws(k) for s in sources])
+                u_prop, u_mu, u_acc = d.u_prop, d.u_mu, d.u_acc
+                if K_l != K:   # the block's chains of each ensemble's draws
+                    T = u_prop.shape[0]
+                    u_prop = u_prop.reshape(T, E, K, P)[:, :, rows].reshape(
+                        T, E * K_l, P)
+                    if u_mu is not None:
+                        u_mu = u_mu.reshape(T, E, K)[:, :, rows].reshape(
+                            T, E * K_l)
+                    u_acc = u_acc[:, rows]
+                new_states = make_trial_move(states.reshape(E * K_l, P), w,
+                                             u_prop, u_mu, move_plan)
+                new_ll, nf = eval_nf(new_states)
+                new_states = new_states.reshape(E, K_l, P)
+                new_ll = new_ll.reshape(E, K_l, K)
+                nfail = nfail + nf.reshape(E, K_l).sum(dim=1)
 
-            # each chain's own temperature is global column c0 + i
-            logratio = (torch.diagonal(new_ll, c0, dim1=1, dim2=2)
-                        - torch.diagonal(ll, c0, dim1=1, dim2=2))
-            logratio = torch.where(torch.isnan(logratio), -torch.inf,
-                                   logratio)
-            accept = u_acc < torch.exp(logratio)
-            states = torch.where(accept[..., None], new_states, states)
-            ll = torch.where(accept[..., None], new_ll, ll)
+                # each chain's own temperature is global column c0 + i
+                logratio = (torch.diagonal(new_ll, c0, dim1=1, dim2=2)
+                            - torch.diagonal(ll, c0, dim1=1, dim2=2))
+                logratio = torch.where(torch.isnan(logratio), -torch.inf,
+                                       logratio)
+                accept = u_acc < torch.exp(logratio)
+                states = torch.where(accept[..., None], new_states, states)
+                ll = torch.where(accept[..., None], new_ll, ll)
 
-            if do_tempering and k % temper_freq == 0:
-                st_g, ll_g = tp.gather(states, ll)
-                st_g, ll_g, att, acc = swap_perm_round(st_g, ll_g, d.swap_i,
-                                                       d.swap_u)
-                states, ll, att, acc = tp.scatter(st_g, ll_g, att, acc)
-                swap_att = swap_att + att
-                swap_acc = swap_acc + acc
-            h_states.append(states)
-            h_ll.append(torch.diagonal(ll, c0, dim1=1, dim2=2))
-            h_acc.append(accept)
+                if do_tempering and k % temper_freq == 0:
+                    st_g, ll_g = tp.gather(states, ll)
+                    st_g, ll_g, att, acc = swap_perm_round(
+                        st_g, ll_g, d.swap_i, d.swap_u)
+                    states, ll, att, acc = tp.scatter(st_g, ll_g, att, acc)
+                    swap_att = swap_att + att
+                    swap_acc = swap_acc + acc
+                h_states.append(states)
+                h_ll.append(torch.diagonal(ll, c0, dim1=1, dim2=2))
+                h_acc.append(accept)
         hist = (torch.stack(h_states, dim=1), torch.stack(h_ll, dim=1),
                 torch.stack(h_acc, dim=1))
         return states, ll, swap_att, swap_acc, tp.psum_fail(nfail), hist
