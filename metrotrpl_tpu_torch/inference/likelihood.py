@@ -10,10 +10,14 @@ comparison pipeline, and returns the log-likelihood of every state at
 every temperature; the ``nn`` kind runs the same comparison pipeline on
 the surrogate's curves, and neither it nor ``pa`` launches a kernel.
 
-The ladder runs inline: rows that need repair are gathered, solved again
-on the escalation plan (on the card: the float64 instantiation of the
-same CUDA kernel) and scattered back. Rows are independent, so this
-equals the JAX "solve every row, then select" (likelihood.py:868-874).
+The ladder runs inline: rows that need repair are solved again on the
+escalation plan (on the card: the float64 instantiation of the same CUDA
+kernel) and copied back. Rows are independent, so this equals the JAX
+"solve every row, then select" (likelihood.py:868-874). Its one host
+sync, on the number of rows to repair, splits the evaluation into fixed-
+shape parts (:class:`LadderEval`): before it, the rung's inputs are made
+for every row with the rows to repair first, so that after it the rung
+launches on their prefix.
 """
 
 import copy
@@ -29,7 +33,12 @@ from metrotrpl_tpu_torch.constants import NEGATIVE_FRAC_TOL
 from metrotrpl_tpu_torch.ops.convolve import convolve_moments
 from metrotrpl_tpu_torch.ops.interp import interp1d
 from metrotrpl_tpu_torch.physics.models import beer_lambert
-from metrotrpl_tpu_torch.solver.forward import make_forward_plan, solve_forward_batch
+from metrotrpl_tpu_torch.solver.forward import (
+    make_forward_plan,
+    prepare_batch,
+    solve_forward_batch,
+    solve_prepared,
+)
 from metrotrpl_tpu_torch.solver.sdirk import NEWTON_DAMP
 from metrotrpl_tpu_torch.tracing import span
 
@@ -388,12 +397,14 @@ def _gather_or_one(states, idx):
     return torch.where(idx >= 0, vals, torch.ones_like(vals))
 
 
-def expand_states(plan, g_idx, x_centers, states, init_profiles, units):
+def expand_states(plan, g_idx, x_centers, states, init_profiles, units,
+                  fluence_idx=None, absp_idx=None):
     """The (K * Mg) simulation batch of measurement group ``g_idx`` for K
     entry-unit states: (init_dN (K*Mg, nx) [nm^-3], raw model-unit
     parameters name -> (K*Mg,)). Row k*Mg + m is state k, measurement
     g_idx[m]. init_profiles, units and x_centers (Mg, nx) are tensors on
-    the states' device."""
+    the states' device; so are fluence_idx and absp_idx, the plan's
+    arrays, where given (else they are uploaded here)."""
     K = states.shape[0]
     Mg = len(g_idx)
     model_states = states * units[None, :]
@@ -401,10 +412,12 @@ def expand_states(plan, g_idx, x_centers, states, init_profiles, units):
            for n in _RAW_NAMES if n in plan.param_idx}
     if plan.ini_mode == "fluence":
         dev = states.device
-        f_mult = _gather_or_one(states, torch.as_tensor(
-            plan.fluence_idx, device=dev))[:, g_idx]
-        a_mult = _gather_or_one(states, torch.as_tensor(
-            plan.absp_idx, device=dev))[:, g_idx]
+        if fluence_idx is None:
+            fluence_idx = torch.as_tensor(plan.fluence_idx, device=dev)
+        if absp_idx is None:
+            absp_idx = torch.as_tensor(plan.absp_idx, device=dev)
+        f_mult = _gather_or_one(states, fluence_idx)[:, g_idx]
+        a_mult = _gather_or_one(states, absp_idx)[:, g_idx]
         fl = (init_profiles[None, g_idx, 0] * 1e-14) * f_mult
         al = (init_profiles[None, g_idx, 1] * 1e-7) * a_mult
         dr = init_profiles[None, g_idx, 2].repeat(K, 1)
@@ -471,13 +484,23 @@ def _make_irf_stage(plan, dtype, device):
     return irf
 
 
+class _Compare(NamedTuple):
+    """The post-solve comparison in its two parts: ``irf`` (the IRF stage,
+    evaluated for every row) and ``finish`` (the rest, on its output)."""
+    irf: callable       # sol -> (sol_irf, irf_valid, conv_fail)
+    finish: callable    # (sol, irf's output, scale_shift, temps) -> ll
+
+    def __call__(self, sol, scale_shift, temps):
+        return self.finish(sol, self.irf(sol), scale_shift, temps)
+
+
 def _make_compare_pipeline(plan, dtype, device):
     """Post-solve comparison: IRF convolution (evaluated for every row,
     selected where configured), negative-value tolerance, force_min_y and
     the tempered Gaussian log-likelihood.
 
     Returns compare(sol (K*M, nt_exp), scale_shift (K*M,), temps (Kt,))
-    -> ll (K*M, Kt), -inf for failed rows."""
+    -> ll (K*M, Kt), -inf for failed rows, a :class:`_Compare`."""
     M = plan.n_meas
 
     def t(a, dt=dtype):
@@ -490,7 +513,7 @@ def _make_compare_pipeline(plan, dtype, device):
     has_irf = t(plan.has_irf, torch.bool)
     irf = _make_irf_stage(plan, dtype, device)
 
-    def compare(sol, scale_shift, temps):
+    def finish(sol, irf_out, scale_shift, temps):
         K = sol.shape[0] // M
 
         def tile_m(a):  # (M, ...) -> (K*M, ...)
@@ -499,7 +522,7 @@ def _make_compare_pipeline(plan, dtype, device):
         b_exp_mask = tile_m(exp_mask)
 
         # ---- IRF convolution path (computed for every row, selected) ----
-        sol_irf, irf_valid, conv_fail = irf(sol)
+        sol_irf, irf_valid, conv_fail = irf_out
 
         b_has_irf = tile_m(has_irf)
         sol_cmp = torch.where(b_has_irf[:, None], sol_irf, sol)
@@ -540,7 +563,7 @@ def _make_compare_pipeline(plan, dtype, device):
         ll = torch.where(fail[:, None], -torch.inf, ll)
         return ll
 
-    return compare
+    return _Compare(irf, finish)
 
 
 _SOLVE_DTYPES = {"float64": torch.float64, "float32": torch.float32}
@@ -555,13 +578,37 @@ def _eval_span(fn):
     return eval_logll
 
 
+class LadderEval(NamedTuple):
+    """The pde kind's eval_logll in the parts around the escalation
+    ladder's one data-dependent step. Calling it runs them back to back;
+    the walk on a card replays ``before``, ``mid`` and ``after`` as CUDA
+    graphs around an eager ``rung``.
+
+    before : states (K, P) -> pre, the ladder up to its sync (fixed shapes)
+    rung : pre -> None, the sync and the rung's rows, copied into pre
+    mid : pre -> the assembled curves and the IRF stage on them
+    after : (pre, mid's output, temps) -> eval_logll's dict
+    """
+    before: callable
+    rung: callable
+    mid: callable
+    after: callable
+
+    def __call__(self, states, temps):
+        with span("metrotrpl.likelihood.eval"):
+            pre = self.before(states)
+            self.rung(pre)
+            return self.after(pre, self.mid(pre), temps)
+
+
 def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
     """Build eval_logll(states (K, P), temps (Kt,)) -> dict with
     'logll_T' (K, Kt), 'per_meas' (K, M, Kt), 'n_solver_fail' (),
     'fail_states' (K,), 'resid' (K, M), 'esc_score' (K, M) — the
     post-repair values of the JAX twin's "inline" escalation mode — and
     'repair_states' (K,), the rows per state the ladder solved again.
-    States are in entry units; every tensor lives on ``device``."""
+    States are in entry units; every tensor lives on ``device``. For the
+    pde kind it is a :class:`LadderEval`."""
     device = resolve_device(device)
     if plan.kind == "pa":
         return _make_eval_pa(plan, dtype, device)
@@ -575,6 +622,8 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
     with span(_BUILD_SPAN, always=True):
         units = t(plan.units)
         scale_idx = t(plan.scale_idx, torch.int64)
+        fluence_idx = t(plan.fluence_idx, torch.int64)
+        absp_idx = t(plan.absp_idx, torch.int64)
         init_profiles = t(plan.init_profiles)
         nt_exp = plan.exp_times.shape[1]
         compare = _make_compare_pipeline(plan, dtype, device)
@@ -616,58 +665,96 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
                 g["hi_t"] = plan_tensors(
                     g["fp_hi"], dtype if sd is None else _SOLVE_DTYPES[sd])
 
-    def run_solve(fp_x, pt, rows, init_dN, raw, Mg):
-        """Solve the given batch rows on plan fp_x; results in the walk
-        dtype. rows=None solves every row. The plan's solve_dtype (the
-        float64 rung) overrides the walk dtype for the solve."""
+    def plan_args(fp_x):
+        return dict(model=fp_x.model, scheme=fp_x.scheme,
+                    newton_iters=fp_x.newton_iters,
+                    refactor_every=fp_x.refactor_every, n_ramp=fp_x.n_ramp,
+                    ramp_block=fp_x.ramp_block,
+                    newton_plateau=fp_x.newton_plateau, with_diag=True)
+
+    def take(fp_x, order, init_dN, raw, Mg):
+        """The batch's rows in ``order`` (None: as they are) in plan fp_x's
+        solve dtype (the float64 rung overrides the walk dtype), and each
+        row's measurement."""
         sd = fp_x.solve_dtype
         cdt = dtype if sd is None else _SOLVE_DTYPES[sd]
-        n = init_dN.shape[0]
-        meas = torch.arange(n, device=device) % Mg   # row -> measurement
-        if rows is not None:
-            meas = meas[rows]
-            init_dN = init_dN[rows]
-            raw = {k: v[rows] for k, v in raw.items()}
+        meas = torch.arange(init_dN.shape[0], device=device) % Mg
+        if order is not None:
+            meas = meas[order]
+            init_dN = init_dN[order]
+            raw = {k: v[order] for k, v in raw.items()}
+        return init_dN.to(cdt), {k: v.to(cdt) for k, v in raw.items()}, meas
+
+    def run_solve(fp_x, pt, init_dN, raw, Mg):
+        """Solve every row of the batch on plan fp_x; results in the walk
+        dtype."""
+        init_dN, raw, meas = take(fp_x, None, init_dN, raw, Mg)
         sol_x, resid_x = solve_forward_batch(
-            init_dN.to(cdt), {k: v.to(cdt) for k, v in raw.items()},
-            pt["dx"][meas], pt["dt"][meas], pt["out_idx"][meas],
-            pt["is_trpl"][meas], model=fp_x.model, scheme=fp_x.scheme,
-            newton_iters=fp_x.newton_iters,
+            init_dN, raw, pt["dx"][meas], pt["dt"][meas],
+            pt["out_idx"][meas], pt["is_trpl"][meas],
             out_w=None if pt["out_w"] is None else pt["out_w"][meas],
-            refactor_every=fp_x.refactor_every, n_ramp=fp_x.n_ramp,
-            ramp_block=fp_x.ramp_block, newton_plateau=fp_x.newton_plateau,
-            with_diag=True)
+            **plan_args(fp_x))
         return sol_x.to(dtype), resid_x.to(dtype)
 
-    def eval_logll(states, temps):
+    def rung_batch(g, repair, init_dN, raw):
+        """The escalation plan's kernel inputs for every row of the batch,
+        the rows to repair first, in row order: fixed shapes, so that after
+        the sync the rung launches on a prefix of them, gathering
+        nothing."""
+        fp_x, pt = g["fp_hi"], g["hi_t"]
+        idx = torch.arange(repair.shape[0], device=device)
+        upto = torch.cumsum(repair.to(torch.int64), 0)  # repair rows <= i
+        dest = torch.where(repair, upto - 1, upto[-1] + idx - upto)
+        order = torch.empty_like(idx).scatter_(0, dest, idx)
+        init_o, raw_o, meas = take(fp_x, order, init_dN, raw, g["Mg"])
+        p, y0, dts, ns = prepare_batch(init_o, raw_o, pt["dx"][meas],
+                                       pt["dt"][meas], fp_x.model)
+        return {"p": p, "y0": y0, "dts": dts, "dx": pt["dx"][meas],
+                "ns": ns, "raw": raw_o, "out_idx": pt["out_idx"][meas],
+                "is_trpl": pt["is_trpl"][meas],
+                "out_w": None if pt["out_w"] is None else pt["out_w"][meas]}
+
+    def run_rung(g, hi, n):
+        """Solve the first n rows of rung_batch's inputs on the escalation
+        plan; results in the walk dtype."""
+        sol_x, resid_x = solve_prepared(
+            type(hi["p"])(*(f[:n] for f in hi["p"])), hi["y0"][:n],
+            hi["dts"][:, :n], hi["dx"][:n], hi["ns"][:n],
+            {k: v[:n] for k, v in hi["raw"].items()}, hi["out_idx"][:n],
+            hi["is_trpl"][:n],
+            out_w=None if hi["out_w"] is None else hi["out_w"][:n],
+            **plan_args(g["fp_hi"]))
+        return sol_x.to(dtype), resid_x.to(dtype)
+
+    def fail_static(sol):
+        # non-finite output, or pinned at the underflow clamp
+        return (~torch.all(torch.isfinite(sol), dim=-1)
+                | torch.any(sol <= tiny4, dim=-1))
+
+    def fail_resid(g, resid):
+        # ~(x < tol): a NaN residual flags too
+        return ~(resid < g["tol"])
+
+    def before(states):
+        """The ladder up to its sync: per group the batch, the fast solve,
+        the gate and the rows to repair. Fixed shapes, no host sync."""
         K = states.shape[0]
         s_fact = _gather_or_one(states, scale_idx)
-        scale_shift = torch.log10(s_fact).reshape(K * M)
-
-        sol_full = torch.zeros((K, M, nt_exp), dtype=dtype, device=device)
-        resid_full = torch.zeros((K, M), dtype=dtype, device=device)
-        score_full = torch.zeros((K, M), dtype=dtype, device=device)
-        n_solver_fail = torch.zeros((), dtype=torch.int64, device=device)
-        repair_states = torch.zeros((K,), dtype=torch.int64, device=device)
-        fail_states = torch.zeros((K,), dtype=torch.int64, device=device)
+        pre = {"K": K, "scale_shift": torch.log10(s_fact).reshape(K * M),
+               "score": torch.zeros((K, M), dtype=dtype, device=device),
+               "repair_states": torch.zeros((K,), dtype=torch.int64,
+                                            device=device),
+               "groups": []}
         for g in groups:
-            gi, Mg, fp, fp_hi = g["idx"], g["Mg"], g["fp"], g["fp_hi"]
+            gi, Mg = g["idx"], g["Mg"]
 
             def tile_g(a):  # (Mg, ...) -> (K*Mg, ...)
                 return a.repeat((K,) + (1,) * (a.dim() - 1))
 
             init_dN, raw = expand_states(plan, gi, g["x"], states,
-                                         init_profiles, units)
-            sol_g, resid_g = run_solve(fp, g["fp_t"], None, init_dN, raw, Mg)
-
-            def fail_static(sol):
-                # non-finite output, or pinned at the underflow clamp
-                return (~torch.all(torch.isfinite(sol), dim=-1)
-                        | torch.any(sol <= tiny4, dim=-1))
-
-            def fail_resid(resid):
-                # ~(x < tol): a NaN residual flags too
-                return ~(resid < g["tol"])
+                                         init_profiles, units, fluence_idx,
+                                         absp_idx)
+            sol_g, resid_g = run_solve(g["fp"], g["fp_t"], init_dN, raw, Mg)
 
             # deterministic escalation gate: mean squared log10 distance of
             # the fast solve to the data over valid, non-collapsed points
@@ -685,7 +772,7 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
             else:
                 score = torch.zeros(K * Mg, dtype=dtype, device=device)
                 gate = torch.ones(K * Mg, dtype=torch.bool, device=device)
-            score_full[:, gi] = score.reshape(K, Mg)
+            pre["score"][:, gi] = score.reshape(K, Mg)
 
             if g["hi_is_f64"]:
                 # static and cap-pinned rows repair ungated; sub-cap
@@ -696,26 +783,51 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
                     mu_row = torch.maximum(mu_row, raw["mu_p"])
                 mu_trig = mu_row > ESCALATE_MU_MODEL
                 repair = (fail_static(sol_g) | pinned_g
-                          | ((fail_resid(resid_g) | mu_trig) & gate))
+                          | ((fail_resid(g, resid_g) | mu_trig) & gate))
             else:
-                repair = (fail_static(sol_g) | fail_resid(resid_g)) & gate
-            if fp_hi is not None:
-                with span("metrotrpl.ladder.sync"):
-                    rows = torch.nonzero(repair).flatten()
-                    n_rows = rows.numel()  # one host sync per group and eval
-                if n_rows:
-                    sol_hi, resid_hi = run_solve(fp_hi, g["hi_t"], rows,
-                                                 init_dN, raw, Mg)
-                    sol_g = sol_g.index_copy(0, rows, sol_hi)
-                    resid_g = resid_g.index_copy(0, rows, resid_hi)
-                    repair_states = repair_states + torch.sum(
-                        repair.reshape(K, Mg), dim=1)
-            # concessions (-inf) on the post-repair outputs
+                repair = (fail_static(sol_g) | fail_resid(g, resid_g)) & gate
+            pre["groups"].append({
+                "sol": sol_g, "resid": resid_g, "gate": gate,
+                "repair": repair,
+                "hi": (None if g["fp_hi"] is None
+                       else rung_batch(g, repair, init_dN, raw))})
+        return pre
+
+    def rung(pre):
+        """The ladder's one data-dependent step: per group the host sync
+        on the rows to repair, and their solve on the escalation plan,
+        copied over the fast solve's rows in place."""
+        K = pre["K"]
+        for g, pg in zip(groups, pre["groups"]):
+            if g["fp_hi"] is None:
+                continue
+            with span("metrotrpl.ladder.sync"):
+                rows = torch.nonzero(pg["repair"]).flatten()
+                n_rows = rows.numel()  # one host sync per group and eval
+            if n_rows:   # rows = the prefix of rung_batch's order
+                sol_hi, resid_hi = run_rung(g, pg["hi"], n_rows)
+                pg["sol"].index_copy_(0, rows, sol_hi)
+                pg["resid"].index_copy_(0, rows, resid_hi)
+                pre["repair_states"].add_(torch.sum(
+                    pg["repair"].reshape(K, g["Mg"]), dim=1))
+
+    def assemble(pre):
+        """The concessions (-inf) on the post-repair outputs and the
+        (K*M, nt_exp) curves: (sol, n_solver_fail, fail_states, resid)."""
+        K = pre["K"]
+        sol_full = torch.zeros((K, M, nt_exp), dtype=dtype, device=device)
+        resid_full = torch.zeros((K, M), dtype=dtype, device=device)
+        n_solver_fail = torch.zeros((), dtype=torch.int64, device=device)
+        fail_states = torch.zeros((K,), dtype=torch.int64, device=device)
+        for g, pg in zip(groups, pre["groups"]):
+            gi, Mg = g["idx"], g["Mg"]
+            sol_g, resid_g, gate = pg["sol"], pg["resid"], pg["gate"]
             if g["hi_is_f64"]:
                 concede = (fail_static(sol_g) | ~(resid_g < damp_pin)
-                           | (fail_resid(resid_g) & gate))
+                           | (fail_resid(g, resid_g) & gate))
             else:
-                concede = fail_static(sol_g) | (fail_resid(resid_g) & gate)
+                concede = (fail_static(sol_g)
+                           | (fail_resid(g, resid_g) & gate))
             sol_g = torch.where(concede[:, None], torch.nan, sol_g)
             nfail_g = concede & gate
             n_solver_fail = n_solver_fail + torch.sum(nfail_g)
@@ -724,16 +836,26 @@ def make_eval_logll(plan, dtype=torch.float64, device="cuda"):
             sol_g = sol_g.reshape(K, Mg, -1)[..., :nt_exp]
             sol_full[:, gi, :sol_g.shape[-1]] = sol_g
             resid_full[:, gi] = resid_g.reshape(K, Mg)
-        sol = sol_full.reshape(K * M, nt_exp)
+        return (sol_full.reshape(K * M, nt_exp), n_solver_fail, fail_states,
+                resid_full)
 
-        ll = compare(sol, scale_shift, temps)
+    def mid(pre):
+        """After the rung: the assembled curves and the IRF stage on them."""
+        asm = assemble(pre)
+        return asm, compare.irf(asm[0])
+
+    def after(pre, mid_out, temps):
+        """The rest of the comparison, into eval_logll's dict."""
+        (sol, n_solver_fail, fail_states, resid_full), irf_out = mid_out
+        K = pre["K"]
+        ll = compare.finish(sol, irf_out, pre["scale_shift"], temps)
         per_meas = ll.reshape(K, M, -1)
         return {"logll_T": torch.sum(per_meas, dim=1), "per_meas": per_meas,
                 "n_solver_fail": n_solver_fail, "fail_states": fail_states,
-                "resid": resid_full, "esc_score": score_full,
-                "repair_states": repair_states}
+                "resid": resid_full, "esc_score": pre["score"],
+                "repair_states": pre["repair_states"]}
 
-    return _eval_span(eval_logll)
+    return LadderEval(before, rung, mid, after)
 
 
 def u_potential(x):

@@ -44,7 +44,11 @@ from metrotrpl_tpu_torch.inference.likelihood import (
     make_eval_logll,
     resolve_solver_mode,
 )
-from metrotrpl_tpu_torch.inference.mh_core import TorchDraws, make_window_body
+from metrotrpl_tpu_torch.inference.mh_core import (
+    TorchDraws,
+    WalkEval,
+    make_window_body,
+)
 from metrotrpl_tpu_torch.inference.moves import build_move_plan, n_tries
 
 
@@ -57,27 +61,25 @@ class MHKernel(NamedTuple):
 
 
 def build_mh_kernel(like_plan, move_plan, temps, base_trial_move, temper_freq,
-                    do_tempering, dtype=torch.float64, device="cuda"):
+                    do_tempering, dtype=torch.float64, device="cuda",
+                    _eager=False):
     """The MH window function of one ensemble on ``device``: run_window
     takes states (K, P), ll_T (K, K) and one draw source; init_ll takes
     (K, P) states. :func:`vmap_ensembles` gives its form over E ensembles.
 
     temps : (K,) tempering temperatures (one chain per temperature).
     base_trial_move : (P,) per-parameter move widths (0 = frozen).
+    _eager : walk eagerly on a card too, without the CUDA graphs (tests).
     """
     device = resolve_device(device)
     temps_t = torch.as_tensor(np.asarray(temps), dtype=dtype, device=device)
     base_move = torch.as_tensor(np.asarray(base_trial_move), dtype=dtype,
                                 device=device)
     widths = torch.sqrt(temps_t)[:, None] * base_move[None, :]   # (K, P)
-    eval_logll = make_eval_logll(like_plan, dtype=dtype, device=device)
-
-    def eval_nf(states):
-        r = eval_logll(states, temps_t)
-        return r["logll_T"], r["fail_states"]
-
+    eval_nf = WalkEval(make_eval_logll(like_plan, dtype=dtype,
+                                       device=device), temps_t)
     window = make_window_body(eval_nf, move_plan, widths, temper_freq,
-                              do_tempering)
+                              do_tempering, _eager=_eager)
 
     def run_window(states, ll_T, k0, n_iters, source):
         out = window(states[None], ll_T[None], k0, n_iters, [source])

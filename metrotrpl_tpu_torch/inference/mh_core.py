@@ -6,7 +6,11 @@ chains in one batched solve, accepts or rejects, and every
 ``temper_freq`` iterations runs one round of (K - 1) random adjacent-pair
 tempering swaps in each ensemble, as row permutations of the (E, K, P)
 states and the (E, K, K) chains x temperatures log-likelihood matrices.
-Iterations are a Python loop; all tensors stay on the walk's device.
+Iterations are a Python loop; all tensors stay on the walk's device. On
+a card, a pde walk's iteration is three CUDA graphs, replayed around the
+escalation ladder's one host sync and its eager rung
+(:class:`_IterationGraphs`); elsewhere it runs eagerly, with the same
+bits.
 
 Random numbers come from a *draw source* per ensemble with one method,
 ``draws(k) -> IterDraws``, giving every uniform and integer iteration k
@@ -29,7 +33,13 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from metrotrpl_tpu_torch.inference.moves import make_trial_move
+from metrotrpl_tpu_torch.inference.likelihood import LadderEval
+from metrotrpl_tpu_torch.inference.moves import (
+    make_trial_move,
+    move_tensors,
+    n_tries,
+)
+from metrotrpl_tpu_torch.solver import solve_kernel
 from metrotrpl_tpu_torch.tracing import span
 
 
@@ -147,8 +157,158 @@ def swap_perm_round(st, ll, swap_i, swap_u):
     return st, ll, att, acc
 
 
+class WalkEval:
+    """eval_logll at the walk's temperatures, as the window calls it:
+    eval_nf(states (N, P)) -> ((N, K) ll at every temperature, (N,)
+    solves per state that failed after the escalation ladder).
+    ``ladder`` is the evaluator where it is a :class:`LadderEval` (the pde
+    kind), whose parts the window replays as CUDA graphs on a card, else
+    None."""
+
+    def __init__(self, eval_logll, temps):
+        self.eval_logll = eval_logll
+        self.temps = temps
+        self.ladder = (eval_logll if isinstance(eval_logll, LadderEval)
+                       else None)
+
+    def __call__(self, states):
+        r = self.eval_logll(states, self.temps)
+        return r["logll_T"], r["fail_states"]
+
+
+def accept_step(states, ll, new_states, new_ll, u_acc, c0):
+    """The Metropolis accept of every chain at its own temperature, global
+    column c0 + i of the (E, K_l, K) ll: (states, ll, accept (E, K_l))."""
+    logratio = (torch.diagonal(new_ll, c0, dim1=1, dim2=2)
+                - torch.diagonal(ll, c0, dim1=1, dim2=2))
+    logratio = torch.where(torch.isnan(logratio), -torch.inf, logratio)
+    accept = u_acc < torch.exp(logratio)
+    states = torch.where(accept[..., None], new_states, states)
+    ll = torch.where(accept[..., None], new_ll, ll)
+    return states, ll, accept
+
+
+def _kernel_counts():
+    return {k: (solve_kernel.LAUNCHES[k], solve_kernel.ROWS[k])
+            for k in solve_kernel.LAUNCHES}
+
+
+class _Segment:
+    """A fixed-shape piece of the iteration, fn, captured once as a CUDA
+    graph in ``pool``. A replay runs no Python, so it adds to the solve
+    kernel's counters what the capture's calls added, and the capture
+    itself counts nothing."""
+
+    def __init__(self, fn, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        c0 = _kernel_counts()
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            fn()
+        c1 = _kernel_counts()
+        self.counts = {k: (c1[k][0] - c0[k][0], c1[k][1] - c0[k][1])
+                       for k in c1 if c1[k] != c0[k]}
+        self._add(-1)
+
+    def _add(self, sign):
+        for k, (n, rows) in self.counts.items():
+            solve_kernel.LAUNCHES[k] += sign * n
+            solve_kernel.ROWS[k] += sign * rows
+
+    def replay(self):
+        with span("metrotrpl.walk.replay"):
+            self.graph.replay()
+        self._add(1)
+
+
+class _IterationGraphs:
+    """The iteration of a pde walk on a card as three CUDA graphs around
+    the ladder's rung, the one step whose size the data decide:
+
+    A : the trial move and the ladder up to its sync (``before``);
+    then, eagerly, the sync and the rung (``rung``);
+    I : the assembled curves and the IRF stage (``mid``);
+    C : the rest of the comparison, the accept step and the failure count.
+
+    Static buffers hold the carried states ``x`` and ll ``ll``, the
+    iteration's draws and the window's failure count ``nfail``. The first
+    iteration runs the segments eagerly on a side stream, the warm-up a
+    capture asks for; the second captures them, into one memory pool, and
+    from then on they are replayed."""
+
+    def __init__(self, ev, move_plan, mt, w, c0, states, ll):
+        E, K_l, P = states.shape
+        T = n_tries(move_plan)
+        kw = dict(dtype=states.dtype, device=states.device)
+        self.ev, self.plan, self.mt, self.w, self.c0 = (ev, move_plan, mt,
+                                                        w, c0)
+        self.x = torch.empty_like(states)
+        self.ll = torch.empty_like(ll)
+        self.u_prop = torch.empty((T, E * K_l, P), **kw)
+        self.u_mu = (None if move_plan.mu_constraint is None
+                     else torch.empty((T, E * K_l), **kw))
+        self.u_acc = torch.empty((E, K_l), **kw)
+        self.nfail = torch.zeros((E,), dtype=torch.int64,
+                                 device=states.device)
+        self.warm = False
+        self.segments = None
+
+    def _a(self):
+        E, K_l, P = self.x.shape
+        self.new = make_trial_move(self.x.reshape(E * K_l, P), self.w,
+                                   self.u_prop, self.u_mu, self.plan,
+                                   self.mt)
+        self.pre = self.ev.ladder.before(self.new)
+
+    def _i(self):
+        self.mid = self.ev.ladder.mid(self.pre)
+
+    def _c(self):
+        r = self.ev.ladder.after(self.pre, self.mid, self.ev.temps)
+        E, K_l, P = self.x.shape
+        self.nfail.add_(r["fail_states"].reshape(E, K_l).sum(dim=1))
+        x, ll, self.accept = accept_step(
+            self.x, self.ll, self.new.reshape(E, K_l, P),
+            r["logll_T"].reshape(self.ll.shape), self.u_acc, self.c0)
+        self.x.copy_(x)
+        self.ll.copy_(ll)
+
+    def step(self, u_prop, u_mu, u_acc):
+        """One iteration on these draws: moves ``x`` and ``ll`` on and
+        returns the accepts (E, K_l)."""
+        self.u_prop.copy_(u_prop)
+        if u_mu is not None:
+            self.u_mu.copy_(u_mu)
+        self.u_acc.copy_(u_acc)
+        ladder = self.ev.ladder
+        if not self.warm:
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side), span("metrotrpl.likelihood.eval"):
+                self._a()
+                ladder.rung(self.pre)
+                self._i()
+                self._c()
+            cur.wait_stream(side)
+            self.warm = True
+            return self.accept
+        if self.segments is None:
+            pool = torch.cuda.graph_pool_handle()
+            self.segments = [_Segment(f, pool)
+                             for f in (self._a, self._i, self._c)]
+        a, i, c = self.segments
+        with span("metrotrpl.likelihood.eval"):
+            a.replay()
+            ladder.rung(self.pre)
+            with span("metrotrpl.likelihood.irf"):
+                i.replay()
+            c.replay()
+        return self.accept
+
+
 def make_window_body(eval_nf, move_plan, widths, temper_freq, do_tempering,
-                     topo=None):
+                     topo=None, _eager=False):
     """Build window(states (E_l, K_l, P), ll (E_l, K_l, K), k0, n_iters,
     sources) -> (states, ll, swap_att (E_l, K_l), swap_acc (E_l, K_l),
         nfail (E_l,), hist=(states (E_l, n, K_l, P), ll_own (E_l, n, K_l),
@@ -159,6 +319,10 @@ def make_window_body(eval_nf, move_plan, widths, temper_freq, do_tempering,
     eval_nf : (N, P) states -> ((N, K) ll at every temperature, (N,)
         count per state of the solves that failed after the escalation
         ladder). Each iteration calls it once, on all E_l * K_l proposals.
+        Where it is a :class:`WalkEval` of the pde kind and the states are
+        on a card, the iterations run as the CUDA graphs of
+        :class:`_IterationGraphs`, kept across windows of the same shapes,
+        with the same bits; ``_eager`` turns them off (tests).
     widths : (K, P) temperature-scaled proposal half-widths (global rows).
     topo : MHTopology of the block; None is the identity topology of
         whatever (E, K) the states have (one block holds every chain).
@@ -167,6 +331,9 @@ def make_window_body(eval_nf, move_plan, widths, temper_freq, do_tempering,
         keeps rows c0:c0 + K_l), so a fused run equals E separate runs
         and any split of the chains equals the fused run.
     """
+    mt = move_tensors(move_plan, widths.dtype, widths.device)
+    graphs = {}    # the captured iteration, by the window's shapes
+
     def window(states, ll, k0, n_iters, sources):
         E, K_l, P = states.shape
         K = ll.shape[2]
@@ -178,12 +345,28 @@ def make_window_body(eval_nf, move_plan, widths, temper_freq, do_tempering,
         _, c0 = tp.offsets()
         rows = slice(c0, c0 + K_l)
         dev = states.device
-        w = widths[rows].repeat(E, 1)
+        n = int(n_iters)
         swap_att = torch.zeros((E, K_l), dtype=torch.int64, device=dev)
         swap_acc = torch.zeros((E, K_l), dtype=torch.int64, device=dev)
         nfail = torch.zeros((E,), dtype=torch.int64, device=dev)
-        h_states, h_ll, h_acc = [], [], []
-        for k in range(int(k0), int(k0) + int(n_iters)):
+        h_states = torch.empty((E, n, K_l, P), dtype=states.dtype,
+                               device=dev)
+        h_ll = torch.empty((E, n, K_l), dtype=ll.dtype, device=dev)
+        h_acc = torch.empty((E, n, K_l), dtype=torch.bool, device=dev)
+        w = widths[rows].repeat(E, 1)
+        g = None
+        if (getattr(eval_nf, "ladder", None) is not None and states.is_cuda
+                and not _eager):
+            key = (states.shape, ll.shape, states.dtype, dev)
+            g = graphs.get(key)
+            if g is None:
+                graphs.clear()
+                g = graphs[key] = _IterationGraphs(eval_nf, move_plan, mt, w,
+                                                   c0, states, ll)
+            g.x.copy_(states)
+            g.ll.copy_(ll)
+            g.nfail.zero_()
+        for i, k in enumerate(range(int(k0), int(k0) + n)):
             with span("metrotrpl.walk.iteration"):
                 d = stack_draws([s.draws(k) for s in sources])
                 u_prop, u_mu, u_acc = d.u_prop, d.u_mu, d.u_acc
@@ -195,21 +378,18 @@ def make_window_body(eval_nf, move_plan, widths, temper_freq, do_tempering,
                         u_mu = u_mu.reshape(T, E, K)[:, :, rows].reshape(
                             T, E * K_l)
                     u_acc = u_acc[:, rows]
-                new_states = make_trial_move(states.reshape(E * K_l, P), w,
-                                             u_prop, u_mu, move_plan)
-                new_ll, nf = eval_nf(new_states)
-                new_states = new_states.reshape(E, K_l, P)
-                new_ll = new_ll.reshape(E, K_l, K)
-                nfail = nfail + nf.reshape(E, K_l).sum(dim=1)
-
-                # each chain's own temperature is global column c0 + i
-                logratio = (torch.diagonal(new_ll, c0, dim1=1, dim2=2)
-                            - torch.diagonal(ll, c0, dim1=1, dim2=2))
-                logratio = torch.where(torch.isnan(logratio), -torch.inf,
-                                       logratio)
-                accept = u_acc < torch.exp(logratio)
-                states = torch.where(accept[..., None], new_states, states)
-                ll = torch.where(accept[..., None], new_ll, ll)
+                if g is None:
+                    new_states = make_trial_move(states.reshape(E * K_l, P),
+                                                 w, u_prop, u_mu, move_plan,
+                                                 mt)
+                    new_ll, nf = eval_nf(new_states)
+                    nfail = nfail + nf.reshape(E, K_l).sum(dim=1)
+                    states, ll, accept = accept_step(
+                        states, ll, new_states.reshape(E, K_l, P),
+                        new_ll.reshape(E, K_l, K), u_acc, c0)
+                else:
+                    accept = g.step(u_prop, u_mu, u_acc)
+                    states, ll = g.x, g.ll
 
                 if do_tempering and k % temper_freq == 0:
                     st_g, ll_g = tp.gather(states, ll)
@@ -218,11 +398,16 @@ def make_window_body(eval_nf, move_plan, widths, temper_freq, do_tempering,
                     states, ll, att, acc = tp.scatter(st_g, ll_g, att, acc)
                     swap_att = swap_att + att
                     swap_acc = swap_acc + acc
-                h_states.append(states)
-                h_ll.append(torch.diagonal(ll, c0, dim1=1, dim2=2))
-                h_acc.append(accept)
-        hist = (torch.stack(h_states, dim=1), torch.stack(h_ll, dim=1),
-                torch.stack(h_acc, dim=1))
-        return states, ll, swap_att, swap_acc, tp.psum_fail(nfail), hist
+                    if g is not None:
+                        g.x.copy_(states)
+                        g.ll.copy_(ll)
+                        states, ll = g.x, g.ll
+                h_states[:, i].copy_(states)
+                h_ll[:, i].copy_(torch.diagonal(ll, c0, dim1=1, dim2=2))
+                h_acc[:, i].copy_(accept)
+        if g is not None:   # the caller's copies: the buffers walk on
+            states, ll, nfail = g.x.clone(), g.ll.clone(), g.nfail.clone()
+        return (states, ll, swap_att, swap_acc, tp.psum_fail(nfail),
+                (h_states, h_ll, h_acc))
 
     return window

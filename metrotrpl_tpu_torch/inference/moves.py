@@ -76,17 +76,39 @@ def n_tries(plan):
     return plan.max_proposals if plan.hard_bounds else 1
 
 
-def approve_move(new_state_t, plan):
+class MoveTensors(NamedTuple):
+    """A plan's arrays as tensors on the walk's device, built once by
+    :func:`move_tensors`, so that a proposal uploads nothing."""
+    do_log: torch.Tensor        # (P,) bool
+    active: torch.Tensor        # (P,) bool
+    lb: torch.Tensor            # (P,) float64
+    ub: torch.Tensor            # (P,) float64
+    mu_lo_hi: Optional[tuple]   # the ambipolar mobility's (lo, hi), or None
+
+
+def move_tensors(plan, dtype, device):
+    """The plan's arrays on ``device``; the mu constraint's bounds in the
+    walk's ``dtype``."""
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    mu = None
+    if plan.mu_constraint is not None:
+        ambi, width = plan.mu_constraint
+        mu = (t(ambi - width, dtype), t(ambi + width, dtype))
+    return MoveTensors(do_log=t(plan.do_log), active=t(plan.active),
+                       lb=t(plan.lb, torch.float64),
+                       ub=t(plan.ub, torch.float64), mu_lo_hi=mu)
+
+
+def approve_move(new_state_t, plan, tensors=None):
     """Prior screen of states in MOVE space (log10 for do_log params),
-    vectorized over leading dims: (..., P) -> (...) bool."""
-    dev = new_state_t.device
-    do_log = torch.as_tensor(plan.do_log, device=dev)
-    active = torch.as_tensor(plan.active, device=dev)
-    lb = torch.as_tensor(plan.lb, dtype=torch.float64, device=dev)
-    ub = torch.as_tensor(plan.ub, dtype=torch.float64, device=dev)
-    raw = torch.where(do_log, pow10(new_state_t), new_state_t)
-    in_bounds = (lb < raw) & (raw < ub)
-    ok = torch.all(torch.where(active, in_bounds, True), dim=-1)
+    vectorized over leading dims: (..., P) -> (...) bool. ``tensors``
+    (:func:`move_tensors`) spares the plan's uploads."""
+    mt = tensors or move_tensors(plan, new_state_t.dtype, new_state_t.device)
+    raw = torch.where(mt.do_log, pow10(new_state_t), new_state_t)
+    in_bounds = (mt.lb < raw) & (raw < mt.ub)
+    ok = torch.all(torch.where(mt.active, in_bounds, True), dim=-1)
 
     if plan.p0_idx >= 0 and plan.n0_idx >= 0:
         ok = ok & (new_state_t[..., plan.p0_idx]
@@ -101,30 +123,30 @@ def approve_move(new_state_t, plan):
     return ok
 
 
-def make_trial_move(state, move_width, u, u_mu, plan):
+def make_trial_move(state, move_width, u, u_mu, plan, tensors=None):
     """Propose new states for K chains.
 
     state (K, P) entry units; move_width (K, P) temperature-scaled
     half-widths; u (T, K, P) and u_mu (T, K) (None without the mu
     constraint) uniform [0, 1) draws for the T = n_tries(plan) candidates.
+    ``tensors`` (:func:`move_tensors` on the state's device and dtype)
+    spares the plan's uploads.
     Returns (K, P) proposals in entry units; frozen (zero-width)
     parameters keep their exact stored value.
     """
-    dtype = state.dtype
     dev = state.device
-    do_log = torch.as_tensor(plan.do_log, device=dev)
+    mt = tensors or move_tensors(plan, state.dtype, dev)
+    do_log = mt.do_log
     x = torch.where(do_log, torch.log10(state), state)
     new = x[None] + move_width[None] * (2.0 * u - 1.0)          # (T, K, P)
     if plan.mu_constraint is not None:
-        ambi, width = plan.mu_constraint
-        lo = torch.tensor(ambi - width, dtype=dtype, device=dev)
-        hi = torch.tensor(ambi + width, dtype=dtype, device=dev)
+        lo, hi = mt.mu_lo_hi
         muambi = torch.maximum(lo, u_mu * (hi - lo) + lo)       # (T, K)
         # mu_p from the ambipolar relation 2/mu_ambi = 1/mu_n + 1/mu_p
         mu_p = 1.0 / (2.0 / muambi - 1.0 / pow10(new[..., plan.mu_n_idx]))
         new = new.clone()
         new[..., plan.mu_p_idx] = torch.log10(mu_p)
-    ok = approve_move(new, plan)                                 # (T, K)
+    ok = approve_move(new, plan, mt)                             # (T, K)
     T = new.shape[0]
     # first approved candidate, else the last one drawn
     first_ok = torch.argmax(ok.to(torch.int32), dim=0)

@@ -26,7 +26,11 @@ import torch
 import torch.distributed as dist
 
 from metrotrpl_tpu_torch.inference.likelihood import make_eval_logll
-from metrotrpl_tpu_torch.inference.mh_core import MHTopology, make_window_body
+from metrotrpl_tpu_torch.inference.mh_core import (
+    MHTopology,
+    WalkEval,
+    make_window_body,
+)
 
 
 class ShardedMHKernel(NamedTuple):
@@ -97,12 +101,9 @@ def build_sharded_mh_kernel(like_plan, move_plan, temps, base_trial_move,
     base_move = torch.as_tensor(np.asarray(base_trial_move), dtype=dtype,
                                 device=device)
     widths = torch.sqrt(temps_t)[:, None] * base_move[None, :]   # (K, P)
-    eval_logll = make_eval_logll(like_plan, dtype=dtype, device=device)
+    eval_nf = WalkEval(make_eval_logll(like_plan, dtype=dtype,
+                                       device=device), temps_t)
     topo = mesh_topology(mesh, E, K, like_plan.n_params)
-
-    def eval_nf(states):
-        r = eval_logll(states, temps_t)
-        return r["logll_T"], r["fail_states"]
 
     def init_ll(states_l):
         E_l, K_l, P = states_l.shape

@@ -222,10 +222,25 @@ def solve_forward_batch(init_dN, raw_params, dx, dt, out_idx, is_trpl,
     with_diag also returns the per-row max |last Newton update| over every
     knot an output sample can read (NaN-propagating).
     """
-    dtype = init_dN.dtype
     p, y0, dts, ns = prepare_batch(init_dN, raw_params, dx, dt, model)
+    return solve_prepared(p, y0, dts, dx.to(init_dN.dtype), ns, raw_params,
+                          out_idx, is_trpl, model=model, scheme=scheme,
+                          newton_iters=newton_iters, min_y=min_y,
+                          out_w=out_w, refactor_every=refactor_every,
+                          n_ramp=n_ramp, ramp_block=ramp_block,
+                          newton_plateau=newton_plateau, with_diag=with_diag)
+
+
+def solve_prepared(p, y0, dts, dx, ns, raw_params, out_idx, is_trpl,
+                   model="std", scheme="sdirk3", newton_iters=2, min_y=None,
+                   out_w=None, refactor_every=1, n_ramp=None, ramp_block=1,
+                   newton_plateau=None, with_diag=False):
+    """:func:`solve_forward_batch` from :func:`prepare_batch`'s kernel
+    inputs (p, y0, dts, ns) and dx in their dtype; raw_params, out_idx,
+    is_trpl and out_w as there."""
+    dtype = y0.dtype
     pl_t, trts_t, resid_t = integrate_observables_cuda(
-        p, y0, dts, dx.to(dtype), model=model, scheme_name=scheme,
+        p, y0, dts, dx, model=model, scheme_name=scheme,
         newton_iters=newton_iters, refactor_every=refactor_every,
         n_ramp=n_ramp, ramp_block=ramp_block, newton_plateau=newton_plateau)
 
