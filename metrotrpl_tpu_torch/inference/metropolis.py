@@ -365,7 +365,7 @@ def run_mh_sharded(ensembles, like_plan, move_plan, logger, seeds, mesh,
     """
     from metrotrpl_tpu_torch.parallel.sharded_mh import (
         build_sharded_mh_kernel,
-        gather_chains,
+        gather_history,
     )
 
     E_l = len(ensembles)
@@ -386,7 +386,7 @@ def run_mh_sharded(ensembles, like_plan, move_plan, logger, seeds, mesh,
     _walk_windows(ensembles, kernel, sources, logger, export_paths, dtype,
                   mesh.device, starting_iter, need_initial_state,
                   block=(kernel.topo.offsets()[1], kernel.topo.K_l),
-                  gather=lambda x: gather_chains(mesh, x),
+                  gather=lambda x: gather_history(mesh, x),
                   owner=mesh.i_c == 0)
     return ensembles
 
@@ -422,8 +422,9 @@ class _MeshJob(NamedTuple):
 def _mesh_rank(rank, work_dir):
     """Entry point of one spawned rank: join the world, walk the rank's
     block (:func:`run_mh_sharded`), write ``mesh_rank{rank}.json`` (its
-    place, device, backend, seconds and kernel launches and rows) into
-    the log directory."""
+    place, device, backend, seconds, kernel launches and rows, and the
+    collectives it made over its chains group with the bytes it put into
+    them) into the log directory."""
     import pickle
 
     import torch.distributed as dist
@@ -473,7 +474,9 @@ def _mesh_rank(rank, work_dir):
             "walk_s": perf_counter() - t0,
             "launches": {f"{m}_{tag[d]}": n
                          for (m, d), n in sk.LAUNCHES.items()},
-            "rows": {f"{m}_{tag[d]}": n for (m, d), n in sk.ROWS.items()}}
+            "rows": {f"{m}_{tag[d]}": n for (m, d), n in sk.ROWS.items()},
+            "collectives": mesh.comm.collectives,
+            "collective_bytes": mesh.comm.bytes}
         with open(os.path.join(job.log_dir, f"mesh_rank{rank}.json"),
                   "w") as f:
             json.dump(report, f)

@@ -11,12 +11,26 @@ through the host; the solves stay on the rank's device either way.
 """
 
 from datetime import timedelta
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from metrotrpl_tpu_torch import resolve_device
+
+
+class CommCount:
+    """The collectives a rank made over its chains group and the bytes it
+    put into them (its own buffer, once per collective)."""
+    __slots__ = ("collectives", "bytes")
+
+    def __init__(self):
+        self.collectives = 0
+        self.bytes = 0
+
+    def add(self, buf):
+        self.collectives += 1
+        self.bytes += buf.numel() * buf.element_size()
 
 
 class ChainMesh(NamedTuple):
@@ -29,6 +43,8 @@ class ChainMesh(NamedTuple):
     backend: str                 # "nccl" or "gloo"
     chains_group: object         # the d_c ranks of ensemble block i_e
     comm_device: torch.device    # where the collectives' tensors live
+    comm: Optional[CommCount] = None   # what the rank's collectives sent
+    #                              (make_chain_mesh's; None: no world)
 
 
 def mesh_devices(mesh_shape, devices=None, device="cuda"):
@@ -111,4 +127,5 @@ def make_chain_mesh(mesh_shape, devices, backend=None, timeout=None):
     comm = device if backend == "nccl" else torch.device("cpu")
     return ChainMesh(shape=(d_e, d_c), rank=rank, i_e=i_e, i_c=i_c,
                      device=device, backend=backend,
-                     chains_group=groups[i_e], comm_device=comm)
+                     chains_group=groups[i_e], comm_device=comm,
+                     comm=CommCount())

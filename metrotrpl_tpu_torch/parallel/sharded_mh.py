@@ -11,7 +11,10 @@ likelihoods into the ensembles' (E_l, K, P) and (E_l, K, K), every rank
 of the group runs the same swap round on them (each draw source gives
 the whole ensemble's swap draws), and each keeps its own rows: the
 collective form of the reference's send/recv swap. The failure counts
-are summed over the chains group once per window.
+are summed over the chains group once per window. Each collective
+runs in a span of its own (``metrotrpl.mesh.gather`` at a swap round,
+``metrotrpl.mesh.history`` for a window's History rows,
+``metrotrpl.mesh.fail_sum``) and adds to the rank's ``mesh.comm`` count.
 
 Draws: ensemble e's source draws all K chains of every iteration, and
 the rank keeps rows c0:c0 + K_l, so the walk does not depend on the
@@ -31,6 +34,7 @@ from metrotrpl_tpu_torch.inference.mh_core import (
     WalkEval,
     make_window_body,
 )
+from metrotrpl_tpu_torch.tracing import span
 
 
 class ShardedMHKernel(NamedTuple):
@@ -48,15 +52,25 @@ def gather_chains(mesh, x):
     d_c * K_l, ...) in chain-block order, on x's device."""
     buf = x.contiguous().to(mesh.comm_device)
     parts = [torch.empty_like(buf) for _ in range(mesh.shape[1])]
+    mesh.comm.add(buf)
     dist.all_gather(parts, buf, group=mesh.chains_group)
     return torch.cat(parts, dim=1).to(x.device)
 
 
+def gather_history(mesh, x):
+    """:func:`gather_chains` of a window's History rows (or the initial
+    state's), in the span ``metrotrpl.mesh.history``."""
+    with span("metrotrpl.mesh.history"):
+        return gather_chains(mesh, x)
+
+
 def sum_chains(mesh, x):
     """x summed over mesh's chains group, on x's device."""
-    buf = x.to(mesh.comm_device, copy=True)
-    dist.all_reduce(buf, group=mesh.chains_group)
-    return buf.to(x.device)
+    with span("metrotrpl.mesh.fail_sum"):
+        buf = x.to(mesh.comm_device, copy=True)
+        mesh.comm.add(buf)
+        dist.all_reduce(buf, group=mesh.chains_group)
+        return buf.to(x.device)
 
 
 def mesh_topology(mesh, E, K, n_params):
@@ -70,7 +84,8 @@ def mesh_topology(mesh, E, K, n_params):
 
     def gather(st_l, ll_l):
         # one collective for both: (E_l, K_l, P + K) -> (E_l, K, P + K)
-        both = gather_chains(mesh, torch.cat([st_l, ll_l], dim=2))
+        with span("metrotrpl.mesh.gather"):
+            both = gather_chains(mesh, torch.cat([st_l, ll_l], dim=2))
         return both[..., :P], both[..., P:]
 
     def scatter(st_g, ll_g, att, acc):

@@ -34,7 +34,11 @@ def test_metro_mesh_equals_fused(fused, shape, tmp_path):
     for bit, in the returned ensembles and in the CPU{e}-final.pik the
     block leaders wrote (loaded by the JAX package); every rank wrote its
     own log file and report (gloo, cpu, its place in the grid), and the
-    rendezvous directory is gone."""
+    rendezvous directory is gone. Each rank's report counts the
+    collectives of its chains group that the walk's length implies, with
+    the bytes of the rank's own buffers (float64): the initial state's
+    gather, a History gather and a failure sum a window, an all-gather a
+    swap round."""
     enss = _metro(tmp_path, mesh_shape=shape)
     assert len(enss) == 2
     for e, ref in enumerate(fused):
@@ -57,3 +61,19 @@ def test_metro_mesh_equals_fused(fused, shape, tmp_path):
         assert (rep["backend"], rep["device"]) == ("gloo", "cpu")
         assert divmod(r, shape[1]) == (rep["i_e"], rep["i_c"])
         assert sum(rep["launches"].values()) == 0   # the CPU launches none
+        assert (rep["collectives"], rep["collective_bytes"]) == \
+            _collectives(shape, fused[0].H.states.shape[1])
+
+
+def _collectives(shape, P, K=2, temper_freq=2, checkpoint_freq=3):
+    """(count, bytes) of one rank's collectives over a walk of iterations
+    1 .. N_ITERS - 1 in windows of checkpoint_freq (walk_setup's)."""
+    E_l, K_l = 2 // shape[0], K // shape[1]
+    iters = range(1, N_ITERS)
+    windows = [len(iters[i:i + checkpoint_freq])
+               for i in range(0, len(iters), checkpoint_freq)]
+    swaps = sum(1 for k in iters if k % temper_freq == 0)
+    count = 1 + 2 * len(windows) + swaps
+    scalars = E_l * K_l * (1 + swaps * (P + K)) + sum(
+        E_l * K_l * (n * P + 2 * n + 2 + K) + E_l for n in windows)
+    return count, 8 * scalars
